@@ -1,0 +1,61 @@
+"""The CUDA kernels against their plain versions on the card. This file
+imports neither JAX nor the test helpers, so that it also runs on a machine
+with a card and no JAX:
+
+    python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_kernels.py
+
+The test decides in its body whether a card exists and skips without one (a
+CUDA kernel has no CPU mode). The wrappers' CPU behaviour is tested in
+test_torch_blend_wrapper.py."""
+import numpy as np
+import pytest
+import torch
+
+from wildgaussians_torch.cameras import make_camera_params_torch
+from wildgaussians_torch.ops import blend as tblend
+from wildgaussians_torch.ops.gaussians import compute_cov3d, preprocess
+from wildgaussians_torch.ops.rasterize_tiled import make_grid
+from wildgaussians_torch.ops.sort_engine import _build_sorted_table
+from wildgaussians_torch.scenes import make_surfel_scene
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _surfel_table(device, n, width, height, n_passes, seed=0):
+    rng = np.random.default_rng(seed)
+    f = width / 1.4
+    xyz, scales, rots, opac, colors = make_surfel_scene(rng, n, width, height, f)
+    t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+    pose = torch.eye(4, device=device)[:3]
+    cam = make_camera_params_torch(pose, t([f, f, width / 2, height / 2]), width, height)
+    pre = preprocess(t(xyz), compute_cov3d(t(scales), t(rots)), t(opac), cam,
+                     width, height, 0.1)
+    stack = torch.stack([t(colors)] + [t(rng.uniform(0, 1, (n, 3))) for _ in range(n_passes - 1)])
+    grid = make_grid(width, height, 16)
+    st = _build_sorted_table(grid, n, 16, n_passes, 4, 0.16, pre.mean2d, pre.conic,
+                             pre.opacity, stack, pre.depth, pre.rect_min, pre.rect_max,
+                             torch.clamp_max(pre.tiles_touched, 16), pre.valid)
+    return st, grid
+
+
+@pytest.mark.gpu
+def test_blend_kernel_matches_plain_on_card():
+    dev = _card()
+    for n_passes in (1, 2, 3):
+        st, grid = _surfel_table(dev, 100_000, 256, 192, n_passes)   # ~2 Gaussians per pixel
+        before = tblend.blend_forward.launches
+        kc, kt, kw = tblend.blend_forward(st.table, st.tile_starts, st.tile_counts, grid, n_passes)
+        torch.cuda.synchronize()
+        assert tblend.blend_forward.launches == before + 1
+        assert kc.device.type == "cuda"
+        pc, pt, pw = tblend.blend_forward_plain(st.table, st.tile_starts, st.tile_counts,
+                                                grid, n_passes)
+        err = torch.maximum((kc - pc).abs().amax(dim=(0, 3)), (kt - pt).abs())
+        assert err.max().item() <= 5e-3, f"{n_passes} passes"
+        assert (err > 1e-4).float().mean().item() <= 1e-4, f"{n_passes} passes"
+        assert torch.all(kw <= st.tile_counts) and int((kw != pw).sum()) <= 2
+        assert int((kw < st.tile_counts).sum()) > 0    # some tiles exit early

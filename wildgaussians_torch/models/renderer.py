@@ -1,0 +1,132 @@
+"""Scene render: activations + SH + appearance + rasterize (forward only).
+
+Counterpart of the forward of `render_internal` in
+`wildgaussians_tpu/models/renderer.py`: builds the camera on the device,
+evaluates SH colors, optionally tones them through the appearance MLP, and
+blends up to three color passes (raw / toned / depth) over one shared
+preprocess and sort (the JAX package's pallas sort engine with pack16 off).
+"""
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from ..cameras import make_camera_params_torch
+from ..config import Config
+from ..ops.blend import rasterize_multi
+from ..ops.gaussians import compute_cov3d, preprocess
+from ..ops.rasterize import overflow_count
+from ..ops.rasterize_tiled import make_grid
+from ..ops.sh import eval_sh_switch
+from ..spans import span
+from .appearance import AppearanceMLP
+
+
+class RenderPkg(NamedTuple):
+    render: torch.Tensor            # [H,W,3] (toned if appearance enabled)
+    raw_render: torch.Tensor        # [H,W,3]
+    accumulation: torch.Tensor      # [H,W] = 1 - final_T
+    radii: torch.Tensor             # [N]
+    depth: Optional[torch.Tensor]   # [H,W] or None
+    num_rendered: torch.Tensor      # sum of (capped) tile rects
+    overflow: torch.Tensor          # truncated contributions
+    max_tiles: torch.Tensor         # largest raw tile rect
+    blend: Dict[str, torch.Tensor]  # the blend kernel's inputs and walked counts
+
+
+def render_internal(gaussians: Dict[str, torch.Tensor],
+                    params: Dict[str, torch.Tensor],
+                    mlp: Optional[AppearanceMLP],
+                    active_sh_degree,
+                    alive: torch.Tensor,
+                    config: Config,
+                    pose: torch.Tensor, intrinsics: torch.Tensor,
+                    width: int, height: int,
+                    *,
+                    embedding: Optional[torch.Tensor],
+                    kernel_size: float,
+                    render_depth: bool = False,
+                    actual_size: Optional[tuple] = None) -> RenderPkg:
+    """One camera render. `gaussians` are post-activation (get_gaussians).
+
+    width/height may be the padded canvas; `actual_size` (w, h) keeps the
+    tan_fov of the real image (the EWA clamp limits)."""
+    max_tiles_per_gaussian = config.max_tiles_per_gaussian
+    with span("camera"):
+        camera = make_camera_params_torch(pose, intrinsics, width, height)
+        if actual_size is not None:
+            aw, ah = actual_size
+            fx, fy = intrinsics[0], intrinsics[1]
+            camera = camera._replace(tan_fov=torch.stack([aw / (2.0 * fx), ah / (2.0 * fy)]).to(torch.float32))
+
+    means3d = gaussians["xyz"]
+    n = means3d.shape[0]
+    opacities = gaussians["opacities"][:, 0]
+    features = torch.clamp_max(gaussians["features"], 1.0)
+    shdim = (config.sh_degree + 1) ** 2
+
+    with span("sh"):
+        dirs = means3d - camera.campos[None]
+        dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-12)
+        if features.shape[-1] == 3:
+            colors = features
+        else:
+            shs = features.reshape(n, shdim, 3).transpose(1, 2)
+            colors = torch.clamp_min(eval_sh_switch(active_sh_degree, config.sh_degree, shs, dirs) + 0.5, 0.0)
+
+    bg = torch.zeros((3,), dtype=torch.float32, device=means3d.device)
+    with span("preprocess"):
+        cov3d = compute_cov3d(gaussians["scales"], gaussians["rotations"])
+        pre = preprocess(means3d, cov3d, opacities, camera, width, height,
+                         kernel_size, tile_size=16, alive=alive)
+    grid = make_grid(width, height, 16)
+
+    passes = []
+    want_raw = not config.appearance_enabled or config.appearance_separate_tuned_color
+    if want_raw:
+        passes.append(("raw", colors))
+    if config.appearance_enabled:
+        if embedding is None or mlp is None:
+            raise ValueError("appearance is enabled: an embedding and the MLP are required")
+        with span("appearance"):
+            emb_expanded = embedding[None].expand(n, embedding.shape[0])
+            toned = torch.clamp_max(mlp(params["embeddings"], emb_expanded, features), 1.0)
+            shs_t = torch.clamp_max(toned.reshape(n, shdim, 3).transpose(1, 2), 1.0)
+            colors_toned = torch.clamp_min(
+                eval_sh_switch(active_sh_degree, config.sh_degree, shs_t, dirs) + 0.5, 0.0)
+        passes.append(("toned", colors_toned))
+    depth_norm = None
+    if render_depth:
+        with span("depth_colors"):
+            dist = torch.linalg.norm(means3d - camera.campos[None], dim=-1)
+            # the depth pass is normalized by its largest valid distance, as
+            # in the JAX package (compositing is linear in color; the scale
+            # is re-applied to the blended image below)
+            depth_norm = torch.max(torch.where(pre.valid, dist, 0.0)) + 1e-6
+            passes.append(("depth", (dist / depth_norm)[:, None].repeat(1, 3)))
+
+    d_small = config.pallas_d_small
+    big_fraction = config.pallas_big_fraction
+    outs, blend_aux = rasterize_multi(
+        pre.mean2d, pre.conic, pre.opacity, [c for _tag, c in passes],
+        pre.depth, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.valid, bg,
+        grid=grid, max_tiles_per_gaussian=max_tiles_per_gaussian,
+        d_small=d_small, big_fraction=big_fraction)
+    results = dict(zip([tag for tag, _c in passes], outs))
+
+    raw_img = results["raw"][0] if "raw" in results else None
+    accumulation = (1.0 - results["raw"][1] if "raw" in results
+                    else 1.0 - results["toned"][1])
+    rendered = results["toned"][0] if "toned" in results else raw_img
+    if raw_img is None:
+        raw_img = rendered
+    depth = (results["depth"][0][..., 0] * depth_norm
+             if "depth" in results else None)
+
+    num_rendered = torch.sum(torch.clamp_max(pre.tiles_touched, max_tiles_per_gaussian))
+    overflow = overflow_count(pre.tiles_touched, blend_aux["vis_count"], max_tiles_per_gaussian,
+                              d_small=d_small, big_fraction=big_fraction)
+    return RenderPkg(render=rendered, raw_render=raw_img,
+                     accumulation=accumulation, radii=pre.radius,
+                     depth=depth, num_rendered=num_rendered, overflow=overflow,
+                     max_tiles=torch.max(torch.where(pre.valid, pre.tiles_touched, 0)),
+                     blend=blend_aux)
