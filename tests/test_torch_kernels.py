@@ -1,4 +1,7 @@
-"""The CUDA kernels against their plain versions on the card. This file
+"""The CUDA kernels against their plain versions on the card: K1 (the blend
+forward), K2 (its backward, per gradient row within 2e-3 of the row's
+largest value: the kernel sums each entry over 256 pixels in another order)
+and K3 (the tier-2 merge, exactly). This file
 imports neither JAX nor the test helpers, so that it also runs on a machine
 with a card and no JAX:
 
@@ -42,6 +45,34 @@ def _surfel_table(device, n, width, height, n_passes, seed=0):
     return st, grid
 
 
+def _check_backward(st, grid, n_passes, dev):
+    """K2 on random cotangents and K1's outputs, then K3 on the slot sums."""
+    g = torch.Generator(device=dev).manual_seed(n_passes)
+    colors, final_t, _ = tblend.blend_forward(st.table, st.tile_starts, st.tile_counts, grid,
+                                              n_passes)
+    gcol = torch.randn(colors.shape, generator=g, device=dev) * 1e-3
+    gte = torch.randn(final_t.shape, generator=g, device=dev) * 1e-3
+    args = (st.table, st.tile_starts, st.tile_counts, grid, n_passes, gcol, gte, colors,
+            final_t, (128.0, 96.0))
+    before = tblend.blend_backward.launches
+    rows = tblend.blend_backward(*args)
+    torch.cuda.synchronize()
+    assert tblend.blend_backward.launches == before + 1 and rows.device.type == "cuda"
+    plain = tblend.blend_backward_plain(*args)
+    rel = (rows - plain).abs().amax(1) / torch.clamp_min(plain.abs().amax(1), 1e-30)
+    assert torch.isfinite(rows).all() and rel.max().item() <= 2e-3, f"{n_passes} passes: {rel}"
+
+    n = st.vis_count.shape[0]
+    sums = torch.randn((rows.shape[0], n), generator=g, device=dev)
+    bigs = torch.randn((rows.shape[0], st.big_list.shape[0]), generator=g, device=dev)
+    before = tblend.tier2_merge.launches
+    got = tblend.tier2_merge(sums.clone(), st.big_list, bigs)
+    torch.cuda.synchronize()
+    assert tblend.tier2_merge.launches == before + 1
+    assert int((st.big_list < n).sum()) > 0
+    assert torch.equal(got, tblend.tier2_merge_plain(sums.clone(), st.big_list, bigs))
+
+
 @pytest.mark.gpu
 def test_blend_kernel_matches_plain_on_card():
     dev = _card()
@@ -59,3 +90,4 @@ def test_blend_kernel_matches_plain_on_card():
         assert (err > 1e-4).float().mean().item() <= 1e-4, f"{n_passes} passes"
         assert torch.all(kw <= st.tile_counts) and int((kw != pw).sum()) <= 2
         assert int((kw < st.tile_counts).sum()) > 0    # some tiles exit early
+        _check_backward(st, grid, n_passes, dev)

@@ -1,7 +1,10 @@
 """The port's cameras, preprocess, SH, tile layout and sort-engine sizes
 against the JAX package, on the same numpy inputs: floats to rtol 1e-5 /
-atol 1e-5, integer and boolean outputs exactly. One test (see
-test_torch_isolation.py); each check is a function of its own."""
+atol 1e-5, integer and boolean outputs exactly; and the gradients of cov3d,
+preprocess and SH under torch autograd against `jax.grad` (rtol 1e-4, atol
+1e-5 of the largest: the same chain, reassociated by two autodiffs). One
+test (see test_torch_isolation.py); each check is a function of its own."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,6 +108,46 @@ def _check_eval_sh_switch(rng, degree):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
 
 
+def _check_gradients(rng):
+    """A weighted sum of preprocess's float outputs and the degree-3 SH
+    colors, differentiated in the means, scales, rotations, opacities and
+    SH coefficients (the render path's chain below the blend)."""
+    n = 80
+    scene = make_scene(rng, n=n)
+    sh = rng.normal(0, 0.3, (n, 3, 16)).astype(np.float32)
+    cam = make_camera(width=80, height=48, pose=_pose(rng))
+    jparams, w, h = jcam.make_camera_params(cam)
+    tparams = tcam.CameraParams(*[_t(x) for x in jparams])
+    weights = [rng.normal(size=s).astype(np.float32) for s in ((n, 2), (n, 3), (n,), (n, 3))]
+    inputs = [scene[k] for k in ("xyz", "scales", "rotations", "opacities")] + [sh]
+
+    def loss(xp, gauss, sh_mod, params, xyz, scales, rots, opac, shs):
+        rots = rots / xp.linalg.norm(rots, axis=-1, keepdims=True) if xp is jnp else \
+            rots / torch.linalg.norm(rots, dim=-1, keepdim=True)
+        pre = gauss.preprocess(xyz, gauss.compute_cov3d(scales, rots), opac, params, w, h, 0.1)
+        dirs = xyz - params.campos[None]
+        dirs = dirs / (xp.linalg.norm(dirs, axis=-1, keepdims=True) if xp is jnp else
+                       torch.linalg.norm(dirs, dim=-1, keepdim=True))
+        colors = sh_mod.eval_sh(3, shs, dirs)
+        ww = [xp.asarray(x) if xp is jnp else _t(x) for x in weights]
+        m = pre.valid[:, None]
+        return ((xp.where(m, pre.mean2d, 0.0) * ww[0]).sum()
+                + (xp.where(m, pre.conic, 0.0) * ww[1]).sum() * 1e-3
+                + (xp.where(pre.valid, pre.opacity, 0.0) * ww[2]).sum()
+                + (colors * ww[3]).sum())
+
+    jg = jax.jit(jax.grad(lambda *a: loss(jnp, jgauss, jsh, jparams, *a),
+                          argnums=tuple(range(5))))(
+        *[jnp.asarray(x) for x in inputs])
+    tin = [_t(x).requires_grad_(True) for x in inputs]
+    tg = torch.autograd.grad(loss(torch, tgauss, tsh, tparams, *tin), tin)
+    for name, a, b in zip(("xyz", "scales", "rotations", "opacities", "sh"), tg, jg):
+        b = np.asarray(b)
+        assert np.abs(b).max() > 0, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-5 * np.abs(b).max(),
+                                   err_msg=f"gradient of {name}")
+
+
 def _check_tile_layout(rng, size, channels):
     from wildgaussians_tpu.ops import rasterize_tiled as jrt
     from wildgaussians_torch.ops import rasterize_tiled as trt
@@ -131,6 +174,7 @@ def test_ops_match_jax():
     _check_preprocess(np.random.default_rng(42))
     for degree in (0, 1, 2, 3):
         _check_eval_sh_switch(np.random.default_rng(42), degree)
+    _check_gradients(np.random.default_rng(42))
     for size, channels in (((70, 45), (3,)), ((32, 16), ())):
         _check_tile_layout(np.random.default_rng(42), size, channels)
     _check_sort_engine_sizes()

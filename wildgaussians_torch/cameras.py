@@ -102,3 +102,34 @@ def make_camera_params_torch(pose: torch.Tensor, intrinsics: torch.Tensor,
         intrinsics=torch.stack([fx, fy, cx, cy]).to(torch.float32),
         tan_fov=torch.stack([w / (2.0 * fx), h / (2.0 * fy)]).to(torch.float32),
     )
+
+
+def camera_project(cameras: Cameras, xyz: np.ndarray) -> np.ndarray:
+    """Project world points to image coordinates (host numpy; a single,
+    unbatched camera). Points at or behind the camera plane project as if
+    at uv = 0, as in the JAX package."""
+    eps = np.finfo(xyz.dtype).eps
+    if xyz.shape[-1] != 3:
+        raise ValueError(f"points must be [..., 3], got {xyz.shape}")
+    origins = cameras.poses[..., :3, 3]
+    rotation = cameras.poses[..., :3, :3]
+    uvw = xyz - origins
+    # (rotation * uvw[..., :, None]).sum(-2) is R^T @ v
+    uvw = (rotation * uvw[..., :, None]).sum(-2)
+    uv = np.where(uvw[..., 2:] > eps, uvw[..., :2] / uvw[..., 2:], np.zeros_like(uvw[..., :2]))
+    x, y = np.moveaxis(uv, -1, 0)
+    fx, fy, cx, cy = np.moveaxis(np.asarray(cameras.intrinsics), -1, 0)
+    x = fx * x + cx
+    y = fy * y + cy
+    return np.stack((x, y), -1)
+
+
+def get_cameras_extent(cameras: Cameras) -> float:
+    """Scene radius from the camera centers (1.1 x the largest distance to
+    their mean); sets the trainer's spatial learning-rate scale."""
+    c2w = cameras.poses
+    cam_centers = np.hstack(list(c2w[:, :3, 3:4]))
+    avg_cam_center = np.mean(cam_centers, axis=1, keepdims=True)
+    dist = np.linalg.norm(cam_centers - avg_cam_center, axis=0, keepdims=True)
+    diagonal = np.max(dist)
+    return float(diagonal * 1.1)

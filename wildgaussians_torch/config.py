@@ -4,9 +4,11 @@ The port's own copy of `wildgaussians_tpu/config.py`. Every field of the JAX
 package's Config is kept, the TPU-only ones (`data_device`, `pallas_*`,
 sharding) included, so that a checkpoint's `config.yaml` written by the JAX
 package loads here: `merge_config` raises on unknown fields. The PyTorch port
-reads `sh_degree`, `kernel_size`, the appearance fields,
-`max_tiles_per_gaussian`, `pallas_d_small` and `pallas_big_fraction`; the
-rest ride along unread.
+reads the render fields (`sh_degree`, `kernel_size`, the appearance fields,
+`max_tiles_per_gaussian`, `pallas_d_small`, `pallas_big_fraction`) and the
+training schedule, learning rates, loss weights and store sizes; the rest
+(the uncertainty model's, densification's thresholds, the TPU engines')
+ride along unread.
 """
 import dataclasses
 import typing

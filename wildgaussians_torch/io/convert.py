@@ -1,12 +1,15 @@
-"""Weights from the JAX package's checkpoint format into the port.
+"""Weights and training state between the JAX package's checkpoint format
+and the port.
 
 A checkpoint is a directory with `config.yaml` and `chkpnt-<step>.npz`. The
 npz holds flat keys: `params/<name>` and `params/appearance_mlp/{w,b}{0,1,2}`
-for the parameter tree, `aux/<field>` for the store's buffers, `adam/...`,
+for the parameter tree, `aux/<field>` for the store's buffers,
+`adam/mu/<param>`, `adam/nu/<param>` and `adam/step` for Adam,
 `spatial_lr_scale` and, with an uncertainty model, `params/uncertainty/...`
-and `uncertainty_bn/...`. `params_from_numpy` turns those arrays into the
-port's tensors and modules; loading a checkpoint and carrying weights across
-from the JAX package in a test go through the same code.
+and `uncertainty_bn/...`. `params_from_numpy` turns the arrays a render
+needs into the port's tensors and modules; `train_state_from_numpy` adds
+Adam and the spatial learning-rate scale for resuming training;
+`state_to_numpy` writes the port's state back in the same layout.
 
 Checked against the config: every `params/*` shape must agree with it (SH
 width with `sh_degree`, the MLP's input width with the appearance fields, and
@@ -20,21 +23,27 @@ import torch
 
 from ..config import Config, config_to_yaml
 from ..models.appearance import HIDDEN, AppearanceMLP, mlp_input_dim
-from ..models.gaussian_store import AuxState
+from ..models.gaussian_store import AdamState, AuxState
 
 # Read and ignored by the serving path: the optimizer state, the training-only
 # scalars, and the uncertainty model with its batch-norm statistics (render
 # never uses it).
 IGNORED_PREFIXES = ("adam/", "params/uncertainty/", "uncertainty_bn/", "spatial_lr_scale")
-# the aux buffers rendering does not read (densification statistics)
-IGNORED_AUX = ("max_radii2D", "xyz_grad", "xyz_gradient_accum_abs",
-               "xyz_gradient_accum_abs_max", "denom")
+# the densification statistics: zeros when a checkpoint lacks them
+STATS_AUX = ("max_radii2D", "xyz_grad", "xyz_gradient_accum_abs",
+             "xyz_gradient_accum_abs_max", "denom")
 
 
 class ModelState(NamedTuple):
     params: Dict[str, torch.Tensor]   # per-Gaussian tensors + appearance_embeddings
     mlp: Optional[AppearanceMLP]      # None when appearance is disabled
     aux: AuxState
+
+
+class TrainState(NamedTuple):
+    model: ModelState
+    adam: AdamState                   # moments keyed as `trainable_tensors`
+    spatial_lr_scale: float
 
 
 def _expected_param_shapes(config: Config, capacity: int, num_images: Optional[int]):
@@ -57,6 +66,21 @@ def _expected_param_shapes(config: Config, capacity: int, num_images: Optional[i
     return shapes
 
 
+def trainable_tensors(params: Dict[str, torch.Tensor],
+                      mlp: Optional[AppearanceMLP]) -> Dict[str, torch.Tensor]:
+    """Every trained tensor under its store key (see models/gaussian_store.py):
+    the parameters, then the MLP's `appearance_mlp/{w,b}{i}`."""
+    out = dict(params)
+    if mlp is not None:
+        out.update(mlp.named_tensors())
+    return out
+
+
+def _to_jax_layout(key: str, x: np.ndarray) -> np.ndarray:
+    """An MLP weight is [out, in] in the port and [in, out] in a checkpoint."""
+    return x.T.copy() if key.startswith("appearance_mlp/w") else x
+
+
 def params_from_numpy(flat: Mapping[str, np.ndarray], config: Config,
                       device="cpu") -> ModelState:
     """JAX-format flat arrays -> the port's tensors and modules on `device`.
@@ -71,13 +95,13 @@ def params_from_numpy(flat: Mapping[str, np.ndarray], config: Config,
     expected = _expected_param_shapes(config, capacity, num_images)
     expected.update({"aux/alive": (capacity,), "aux/filter_3D": (capacity, 1),
                      "aux/active_sh_degree": ()})
+    stats = {f"aux/{name}": (capacity,) if name == "max_radii2D" else (capacity, 1)
+             for name in STATS_AUX}
     for key in flat:
-        if key.startswith(IGNORED_PREFIXES) or key in expected:
-            continue
-        if key.startswith("aux/") and key[len("aux/"):] in IGNORED_AUX:
+        if key.startswith(IGNORED_PREFIXES) or key in expected or key in stats:
             continue
         raise ValueError(f"checkpoint key {key!r} is not expected under this config")
-    for key, shape in expected.items():
+    for key, shape in list(expected.items()) + [(k, s) for k, s in stats.items() if k in flat]:
         if key not in flat:
             raise ValueError(f"checkpoint is missing {key!r} (expected shape {shape})")
         got = tuple(np.shape(flat[key]))
@@ -95,33 +119,83 @@ def params_from_numpy(flat: Mapping[str, np.ndarray], config: Config,
               if key.startswith("params/") and "/appearance_mlp/" not in key}
     mlp = None
     if config.appearance_enabled:
-        mlp = AppearanceMLP.from_config(config).to(device)
-        with torch.no_grad():
-            for i, lin in enumerate(mlp.layers):
-                # the JAX package stores [in, out]; nn.Linear holds [out, in]
-                lin.weight.copy_(t(f"params/appearance_mlp/w{i}").T)
-                lin.bias.copy_(t(f"params/appearance_mlp/b{i}"))
-        mlp.eval()
-    aux = AuxState(alive=t("aux/alive", torch.bool),
-                   filter_3D=t("aux/filter_3D"),
-                   active_sh_degree=t("aux/active_sh_degree", torch.int32))
+        mlp = AppearanceMLP.from_config(config)
+        mlp.load_jax_layout({f"{k}{i}": flat[f"params/appearance_mlp/{k}{i}"]
+                             for i in range(3) for k in "wb"})
+        mlp = mlp.to(device).eval()
+    aux = AuxState(
+        alive=t("aux/alive", torch.bool), filter_3D=t("aux/filter_3D"),
+        **{name: t(key) if key in flat else torch.zeros(shape, device=device)
+           for key, shape in stats.items() for name in [key[len("aux/"):]]},
+        active_sh_degree=t("aux/active_sh_degree", torch.int32))
     return ModelState(params, mlp, aux)
 
 
-def save_checkpoint(path: str, config: Config, flat: Mapping[str, np.ndarray]) -> str:
-    """Write `config.yaml` and `chkpnt-0.npz` in the JAX package's
+def train_state_from_numpy(flat: Mapping[str, np.ndarray], config: Config,
+                           device="cpu") -> TrainState:
+    """`params_from_numpy` plus Adam's moments and step and the spatial
+    learning-rate scale, as the JAX package's `_load_state` reads them.
+    Raises ValueError naming a missing or mis-shaped Adam key."""
+    model = params_from_numpy(flat, config, device)
+    names = trainable_tensors(model.params, model.mlp)
+    moments = {}
+    for which in ("mu", "nu"):
+        moments[which] = {}
+        for name, p in names.items():
+            key = f"adam/{which}/{name}"
+            if key not in flat:
+                raise ValueError(f"checkpoint is missing {key!r}: it holds no training state")
+            x = _to_jax_layout(name, np.asarray(flat[key]))   # the transpose is its own inverse
+            if tuple(x.shape) != tuple(p.shape):
+                raise ValueError(f"checkpoint key {key!r} has shape {np.shape(flat[key])}, "
+                                 f"its parameter {tuple(p.shape)}")
+            moments[which][name] = torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                                                   device=device)
+    for key in ("adam/step", "spatial_lr_scale"):
+        if key not in flat:
+            raise ValueError(f"checkpoint is missing {key!r}")
+    adam = AdamState(moments["mu"], moments["nu"],
+                     torch.as_tensor(np.asarray(flat["adam/step"]), dtype=torch.int32,
+                                     device=device))
+    return TrainState(model, adam, float(flat["spatial_lr_scale"]))
+
+
+def state_to_numpy(params: Dict[str, torch.Tensor], mlp: Optional[AppearanceMLP],
+                   aux: AuxState, adam: AdamState, spatial_lr_scale: float
+                   ) -> Dict[str, np.ndarray]:
+    """The port's training state as the JAX package's `_state_dict` writes
+    it: `params/...` (MLP weights [in, out]), `adam/mu/...`, `adam/nu/...`,
+    `adam/step`, every `aux/...` field and `spatial_lr_scale`."""
+    def host(x):
+        return x.detach().cpu().numpy()
+    flat = {}
+    for name, p in trainable_tensors(params, mlp).items():
+        flat[f"params/{name}"] = _to_jax_layout(name, host(p))
+    for which, moments in (("mu", adam.mu), ("nu", adam.nu)):
+        for name, m in moments.items():
+            flat[f"adam/{which}/{name}"] = _to_jax_layout(name, host(m))
+    flat["adam/step"] = host(adam.step)
+    for field in AuxState._fields:
+        flat[f"aux/{field}"] = host(getattr(aux, field))
+    flat["spatial_lr_scale"] = np.asarray(spatial_lr_scale)
+    return flat
+
+
+def save_checkpoint(path: str, config: Config, flat: Mapping[str, np.ndarray],
+                    step: int = 0) -> str:
+    """Write `config.yaml` and `chkpnt-<step>.npz` in the JAX package's
     layout. Training-only entries missing from `flat` (the densification
     statistics, the optimizer step, the spatial LR scale) are written as
     zeros so that the JAX package loads the checkpoint too."""
     out = dict(flat)
     capacity = int(np.shape(flat["params/xyz"])[0])
-    for name in IGNORED_AUX:
+    for name in STATS_AUX:
         shape = (capacity,) if name == "max_radii2D" else (capacity, 1)
         out.setdefault(f"aux/{name}", np.zeros(shape, np.float32))
     out.setdefault("adam/step", np.asarray(0, np.int32))
     out.setdefault("spatial_lr_scale", np.asarray(1.0, np.float32))
     os.makedirs(path, exist_ok=True)
-    np.savez(os.path.join(path, "chkpnt-0.npz"), **out)
+    np.savez(os.path.join(path, f"chkpnt-{step}.npz"), **out)
     with open(os.path.join(path, "config.yaml"), "w", encoding="utf8") as f:
         f.write(config_to_yaml(config))
     return path

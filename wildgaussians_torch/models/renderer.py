@@ -1,10 +1,12 @@
-"""Scene render: activations + SH + appearance + rasterize (forward only).
+"""Scene render: activations + SH + appearance + rasterize.
 
-Counterpart of the forward of `render_internal` in
-`wildgaussians_tpu/models/renderer.py`: builds the camera on the device,
-evaluates SH colors, optionally tones them through the appearance MLP, and
-blends up to three color passes (raw / toned / depth) over one shared
-preprocess and sort (the JAX package's pallas sort engine with pack16 off).
+Counterpart of `render_internal` in `wildgaussians_tpu/models/renderer.py`:
+builds the camera on the device, evaluates SH colors, optionally tones them
+through the appearance MLP, and blends up to three color passes (raw /
+toned / depth) over one shared preprocess and sort (the JAX package's
+pallas sort engine with pack16 off). Differentiable: with grad enabled the
+blend runs its backward kernels, and the two zero hooks of training receive
+the gradients of the densification statistics.
 """
 from typing import Dict, NamedTuple, Optional
 
@@ -25,7 +27,7 @@ class RenderPkg(NamedTuple):
     render: torch.Tensor            # [H,W,3] (toned if appearance enabled)
     raw_render: torch.Tensor        # [H,W,3]
     accumulation: torch.Tensor      # [H,W] = 1 - final_T
-    radii: torch.Tensor             # [N]
+    radii: torch.Tensor             # [N] int32 (0 = not rendered); feeds the statistics
     depth: Optional[torch.Tensor]   # [H,W] or None
     num_rendered: torch.Tensor      # sum of (capped) tile rects
     overflow: torch.Tensor          # truncated contributions
@@ -45,11 +47,17 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
                     embedding: Optional[torch.Tensor],
                     kernel_size: float,
                     render_depth: bool = False,
+                    mean2d_hook: Optional[torch.Tensor] = None,
+                    absgrad_hook: Optional[torch.Tensor] = None,
                     actual_size: Optional[tuple] = None) -> RenderPkg:
     """One camera render. `gaussians` are post-activation (get_gaussians).
 
     width/height may be the padded canvas; `actual_size` (w, h) keeps the
-    tan_fov of the real image (the EWA clamp limits)."""
+    tan_fov of the real image (the EWA clamp limits) and sets the NDC
+    factors (0.5 w, 0.5 h) of the abs-gradient channel. `mean2d_hook` [N,2]
+    (zeros) is added to the projected means, so its gradient is the
+    gradient of the means in pixels; `absgrad_hook` [N,2] (zeros) receives
+    the fused abs channel in channel 0 (NDC-scaled; channel 1 is 0)."""
     max_tiles_per_gaussian = config.max_tiles_per_gaussian
     with span("camera"):
         camera = make_camera_params_torch(pose, intrinsics, width, height)
@@ -78,6 +86,8 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
         cov3d = compute_cov3d(gaussians["scales"], gaussians["rotations"])
         pre = preprocess(means3d, cov3d, opacities, camera, width, height,
                          kernel_size, tile_size=16, alive=alive)
+        if mean2d_hook is not None:
+            pre = pre._replace(mean2d=pre.mean2d + mean2d_hook)
     grid = make_grid(width, height, 16)
 
     passes = []
@@ -104,13 +114,19 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
             depth_norm = torch.max(torch.where(pre.valid, dist, 0.0)) + 1e-6
             passes.append(("depth", (dist / depth_norm)[:, None].repeat(1, 3)))
 
+    # NDC factors of the reference's abs-gradient channel (0.5 W, 0.5 H)
+    if actual_size is not None:
+        ndc_scale = (0.5 * float(actual_size[0]), 0.5 * float(actual_size[1]))
+    else:
+        ndc_scale = (0.5 * width, 0.5 * height)
     d_small = config.pallas_d_small
     big_fraction = config.pallas_big_fraction
     outs, blend_aux = rasterize_multi(
         pre.mean2d, pre.conic, pre.opacity, [c for _tag, c in passes],
         pre.depth, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.valid, bg,
         grid=grid, max_tiles_per_gaussian=max_tiles_per_gaussian,
-        d_small=d_small, big_fraction=big_fraction)
+        d_small=d_small, big_fraction=big_fraction, absgrad_hook=absgrad_hook,
+        ndc_scale=ndc_scale)
     results = dict(zip([tag for tag, _c in passes], outs))
 
     raw_img = results["raw"][0] if "raw" in results else None

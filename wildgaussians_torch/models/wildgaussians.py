@@ -1,64 +1,388 @@
-"""WildGaussians, serving path: load a checkpoint, take a camera, return an
-image.
+"""WildGaussians: train from a dataset, or load a checkpoint, and render.
 
-Counterpart of the checkpoint loading, `get_embedding`,
-`get_train_embedding` and `render` of `wildgaussians_tpu/models/
-wildgaussians.py`. It reads the JAX package's checkpoint format (see
-io/convert.py). Training, `optimize_embedding` and the uncertainty model are
-not part of this package yet; a config with an uncertainty mode renders all
-the same, since render never uses that model.
+Counterpart of `wildgaussians_tpu/models/wildgaussians.py`: construction
+(`_setup_train`, checkpoint loading), the single-device training step
+(`_build_train_step`'s loss and step, without the uncertainty model),
+`train_iteration`, `render`, `get_embedding`, `get_train_embedding` and
+`save`. Checkpoints use the JAX package's format (see io/convert.py), both
+ways.
+
+Not ported yet (ROADMAP.md, Queue 1): densify/prune, opacity reset and
+capacity growth (a schedule that reaches them raises NotImplementedError),
+the uncertainty model (training with an `uncertainty_mode` other than
+"disabled" raises at construction; rendering never uses it),
+`optimize_embedding` and the point-cloud export of `save`.
 """
+import hashlib
+import logging
 import os
-from typing import Dict, Optional
+import random
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..config import Config, config_from_yaml_str
+from ..cameras import get_cameras_extent
+from ..config import Config, config_from_yaml_str, config_to_yaml, load_config_yaml, merge_config
 from ..device import resolve_device
-from ..io.convert import params_from_numpy
+from ..io.convert import (params_from_numpy, state_to_numpy, train_state_from_numpy,
+                          trainable_tensors)
+from ..ops.knn import mean_knn_dist2
+from ..ops.ssim import ssim
 from ..spans import span
-from ..types import Cameras, RenderOutput, camera_model_to_int
+from ..types import Cameras, Dataset, RenderOutput, camera_model_to_int
+from ..utils import convert_image_dtype
 from . import gaussian_store as gs
+from .appearance import AppearanceMLP
 from .renderer import RenderPkg, render_internal
+from .sky import get_sky_points
+
+logger = logging.getLogger(__name__)
+
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "configs")
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-class WildGaussians:
-    """Renders a trained WildGaussians checkpoint on `device` (CUDA unless
-    `device="cpu"` is passed)."""
+def _pad_to(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    out = np.zeros((h, w, *img.shape[2:]), img.dtype)
+    out[:img.shape[0], :img.shape[1]] = img
+    return out
 
-    def __init__(self, *, checkpoint: str, device=None):
+
+def scale_grads(values: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The forward value unchanged, the gradient scaled by `scale`."""
+    return values * scale + values.detach() * (1 - scale)
+
+
+class WildGaussians:
+    """The WildGaussians method on `device` (CUDA unless `device="cpu"`).
+
+    `WildGaussians(checkpoint=path)` renders a trained checkpoint;
+    `WildGaussians(train_dataset=..., config_overrides=...)` initializes
+    from the dataset's point cloud and trains with `train_iteration(step)`;
+    both together resume training from the checkpoint."""
+
+    def __init__(self, *, checkpoint: Optional[str] = None,
+                 train_dataset: Optional[Dataset] = None,
+                 config_overrides: Optional[Dict[str, Any]] = None, device=None):
         self.device = resolve_device(device)
-        if not os.path.isdir(checkpoint):
-            raise RuntimeError(f"Model directory {checkpoint} does not exist")
         self.checkpoint = checkpoint
-        with open(os.path.join(checkpoint, "config.yaml"), encoding="utf8") as f:
-            self.config: Config = config_from_yaml_str(f.read())
-        steps = sorted(int(x[x.find("-") + 1:x.find(".")])
-                       for x in os.listdir(checkpoint)
-                       if x.startswith("chkpnt-") and x.endswith(".npz"))
-        if not steps:
-            raise RuntimeError(f"no chkpnt-<step>.npz in {checkpoint}")
-        self.step = steps[-1]
+        self.step = 0
+        self._loaded_step = None
+        self.config = Config()
+        load_state = None
+        if checkpoint is not None:
+            if not os.path.isdir(checkpoint):
+                raise RuntimeError(f"Model directory {checkpoint} does not exist")
+            with open(os.path.join(checkpoint, "config.yaml"), encoding="utf8") as f:
+                self.config = config_from_yaml_str(f.read())
+            steps = sorted(int(x[x.find("-") + 1:x.find(".")])
+                           for x in os.listdir(checkpoint)
+                           if x.startswith("chkpnt-") and x.endswith(".npz"))
+            if not steps:
+                raise RuntimeError(f"no chkpnt-<step>.npz in {checkpoint}")
+            self._loaded_step = self.step = steps[-1]
+            with np.load(os.path.join(checkpoint, f"chkpnt-{self.step}.npz"),
+                         allow_pickle=False) as npz:
+                load_state = dict(npz.items())
+        elif config_overrides is not None:
+            config_overrides = dict(config_overrides)
+            config_file = config_overrides.pop("config", "default.yml")
+            self.config = merge_config(load_config_yaml(os.path.join(_CONFIG_DIR, config_file)),
+                                       config_overrides)
         if self.config.appearance_model_2D != "disabled":
             raise NotImplementedError("2D appearance models are not supported")
         if self.config.use_background_model:
             raise NotImplementedError("Background model is not supported")
-        with np.load(os.path.join(checkpoint, f"chkpnt-{self.step}.npz"),
-                     allow_pickle=False) as npz:
-            state = params_from_numpy(npz, self.config, self.device)
-        self.params, self.mlp, self.aux = state
+
+        # the JAX package seeds Python's global RNG with 0 for its camera
+        # shuffle; the port keeps a generator of its own with that seed
+        self._random = random.Random(0)
+        self._np_rng = np.random.default_rng(self.config.seed)
+        self._viewpoint_stack = []
+        self.train_cameras: Optional[Cameras] = None
+        self.cameras_extent: Optional[float] = None
+        self._overflow_streak = 0
+        self.mlp: Optional[AppearanceMLP] = None
+
+        if train_dataset is not None:
+            if self.config.uncertainty_mode != "disabled":
+                raise NotImplementedError(
+                    f"uncertainty_mode {self.config.uncertainty_mode!r}: the uncertainty model "
+                    "is not ported yet (ROADMAP.md, Queue 1, uncertainty); train with "
+                    "uncertainty_mode: disabled")
+            self._setup_train(train_dataset, load_state)
+        elif load_state is not None:
+            self.params, self.mlp, self.aux = params_from_numpy(load_state, self.config,
+                                                                self.device)
+        else:
+            raise ValueError("pass a checkpoint, a train_dataset, or both")
+
+    # ------------------------------------------------------------------ setup
+
+    def _setup_train(self, train_dataset: Dataset, load_state):
+        points3d_xyz = train_dataset["points3D_xyz"]
+        points3d_rgb = train_dataset["points3D_rgb"]
+        if points3d_xyz is None or points3d_rgb is None:
+            raise ValueError("the training dataset has no point cloud (points3D_xyz/rgb)")
+        opacities = 0.1 * np.ones(len(points3d_xyz), np.float32)
+        config = self.config
+        if config.num_sky_gaussians:
+            skybox, _sky_distance = get_sky_points(
+                config.num_sky_gaussians, points3d_xyz, train_dataset["cameras"])
+            skycolor = np.array([[237, 247, 252]], np.uint8).repeat(skybox.shape[0], axis=0)
+            logger.info("Adding skybox with %d points", skybox.shape[0])
+            points3d_xyz = np.concatenate([points3d_xyz, skybox])
+            points3d_rgb = np.concatenate([points3d_rgb, skycolor])
+            opacities = np.concatenate([opacities, np.ones(skybox.shape[0], np.float32)])
+
+        self.cameras_extent = get_cameras_extent(train_dataset["cameras"])
+        self.train_cameras = train_dataset["cameras"]
+        images = train_dataset["images"]
+        masks = train_dataset.get("masks")
+
+        sizes = np.asarray(self.train_cameras.image_sizes)
+        # per-camera canvas: the largest image padded to 16, or size buckets
+        mult = config.size_bucket_multiple
+        if mult > 0:
+            self._pad_wh = [(_round_up(int(s[0]), mult), _round_up(int(s[1]), mult))
+                            for s in sizes]
+        else:
+            pad = (_round_up(int(sizes[:, 0].max()), 16), _round_up(int(sizes[:, 1].max()), 16))
+            self._pad_wh = [pad] * len(sizes)
+
+        def dev(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+        self._train_images = [
+            dev(_pad_to(convert_image_dtype(img, np.float32)[..., :3], bh, bw))
+            for img, (bw, bh) in zip(images, self._pad_wh)]
+        self._train_masks = None
+        if masks is not None:
+            self._train_masks = [
+                dev(_pad_to(convert_image_dtype(m, np.float32)[..., None], bh, bw)[..., 0])
+                for m, (bw, bh) in zip(masks, self._pad_wh)]
+        self._pixmask = [
+            dev(_pad_to(np.ones((int(s[1]), int(s[0]), 1), np.float32), bh, bw)[..., 0])
+            for s, (bw, bh) in zip(sizes, self._pad_wh)]
+        self._sizes = [(float(s[0]), float(s[1])) for s in sizes]
+        self._poses_dev = dev(np.stack([np.asarray(c, np.float32)
+                                        for c in self.train_cameras.poses]))
+        self._intr_dev = dev(np.asarray(self.train_cameras.intrinsics, np.float32))
+        self._sizes_dev = dev(sizes.astype(np.float32))
+
+        if load_state is None:
+            n = points3d_xyz.shape[0]
+            capacity = config.initial_capacity or _round_up(
+                max(int(n * config.capacity_growth_factor), n + 1024), 256)
+            knn_d2 = mean_knn_dist2(dev(points3d_xyz.astype(np.float32))).cpu().numpy()
+            self.params, self.aux = gs.init_params_from_points(
+                config, points3d_xyz, points3d_rgb, opacities, capacity,
+                len(self.train_cameras), knn_d2, self._np_rng, self.device)
+            if config.appearance_enabled:
+                self.mlp = AppearanceMLP.from_config(config, self._np_rng).to(self.device)
+            self.adam = gs.init_adam(self._trainable())
+            self.spatial_lr_scale = float(self.cameras_extent)
+        else:
+            state = train_state_from_numpy(load_state, config, self.device)
+            self.params, self.mlp, self.aux = state.model
+            self.adam, self.spatial_lr_scale = state.adam, state.spatial_lr_scale
+        for t in self._trainable().values():
+            t.requires_grad_(True)
+        self._refresh_filter()
+
+    def _trainable(self) -> Dict[str, torch.Tensor]:
+        return trainable_tensors(self.params, self.mlp)
+
+    def _refresh_filter(self):
+        filt = gs.compute_3d_filter(self.params["xyz"].detach(), self.aux.alive,
+                                    self._poses_dev, self._intr_dev, self._sizes_dev)
+        self.aux = self.aux._replace(filter_3D=filt)
+
+    # ------------------------------------------------------------- train step
+
+    def _loss(self, pkg: RenderPkg, gt, pixmask, mask):
+        """L1 on the toned image plus lambda DSSIM on the raw image over the
+        pixel mask (occluder masks scale the gradients), and the metrics."""
+        lambda_dssim = self.config.lambda_dssim
+        image_toned = pkg.render * pixmask[..., None]
+        image = pkg.raw_render * pixmask[..., None]
+        if mask is not None:
+            image = scale_grads(image, mask[..., None])
+            image_toned = scale_grads(image_toned, mask[..., None])
+        npix = torch.sum(pixmask)
+        l1_map = torch.abs(image_toned - gt)
+        ssim_map = ssim(image, gt, size_average=False)
+        l1_w = torch.sum(l1_map * pixmask[..., None]) / (npix * 3)
+        dssim_w = torch.sum((1.0 - ssim_map) * pixmask) / npix
+        loss = (1.0 - lambda_dssim) * l1_w + lambda_dssim * dssim_w
+        with torch.no_grad():
+            mse = torch.sum(torch.square(image_toned - gt) * pixmask[..., None]) / (npix * 3)
+            metrics = {
+                "loss": loss.detach(),
+                "l1_loss": torch.sum(l1_map * pixmask[..., None]) / (npix * 3),
+                "ssim": torch.sum(ssim_map * pixmask) / npix,
+                "mse": mse,
+                "psnr": -10.0 * torch.log10(mse),
+            }
+            if mask is not None:
+                msum = torch.clamp_min(torch.sum(mask * pixmask), 1.0)
+                mse_masked = torch.sum(torch.square(image_toned - gt)
+                                       * (mask * pixmask)[..., None]) / (msum * 3)
+                metrics.update({
+                    "mask_percentage": torch.sum(mask * pixmask) / npix,
+                    "ssim_masked": torch.sum(ssim_map * mask * pixmask) / msum,
+                    "mse_masked": mse_masked,
+                    "psnr_masked": -10.0 * torch.log10(mse_masked),
+                    "l1_loss_masked": torch.sum(l1_map * (mask * pixmask)[..., None]) / (msum * 3),
+                })
+        return loss, metrics
+
+    def _train_step(self, camera_id: int, iteration: int, densify_enabled: bool
+                    ) -> Dict[str, torch.Tensor]:
+        """One step on one camera: render, loss, backward, densification
+        statistics and Adam (skipped on the last iteration). Updates the
+        store in place; returns the metrics as device scalars."""
+        config = self.config
+        pw, ph = self._pad_wh[camera_id]
+        aw, ah = self._sizes[camera_id]
+        gt = self._train_images[camera_id]
+        pixmask = self._pixmask[camera_id]
+        mask = self._train_masks[camera_id] if self._train_masks is not None else None
+        n = self.params["xyz"].shape[0]
+        m2d_hook = torch.zeros((n, 2), device=self.device, requires_grad=True)
+        abs_hook = torch.zeros((n, 2), device=self.device, requires_grad=True)
+        with span("forward"):
+            gaussians = gs.get_gaussians(self.params, self.aux)
+            embedding = (self.params["appearance_embeddings"][camera_id]
+                         if config.appearance_enabled else None)
+            pkg = render_internal(
+                gaussians, self.params, self.mlp, self.aux.active_sh_degree, self.aux.alive,
+                config, self._poses_dev[camera_id], self._intr_dev[camera_id], pw, ph,
+                embedding=embedding, kernel_size=config.kernel_size,
+                mean2d_hook=m2d_hook, absgrad_hook=abs_hook, actual_size=(aw, ah))
+        with span("loss"):
+            loss, metrics = self._loss(pkg, gt, pixmask, mask)
+        trainable = self._trainable()
+        with span("backward"):
+            grads = torch.autograd.grad(loss, [*trainable.values(), m2d_hook, abs_hook],
+                                        allow_unused=True)
+        # a tensor the step does not reach (features_rest at SH degree 0
+        # without appearance) gets a zero gradient, as under jax.grad
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip([*trainable.values(), m2d_hook, abs_hook], grads)]
+        g_m2d, g_abs = grads[-2:]
+        param_grads = dict(zip(trainable, grads[:-2]))
+        with torch.no_grad():
+            if densify_enabled:
+                # the hook gradients are in pixels; the statistics take the
+                # reference's NDC-scaled units (the abs channel arrives scaled)
+                ndc_fac = torch.tensor([0.5 * aw, 0.5 * ah], dtype=torch.float32,
+                                       device=self.device)
+                self.aux = gs.update_densification_stats(
+                    self.aux, g_m2d * ndc_fac[None, :], torch.sum(g_abs, dim=-1),
+                    pkg.radii, config.use_gof_abs_gradient)
+            # the reference skips the optimizer step on the last iteration
+            if iteration < config.iterations:
+                with span("adam"):
+                    lrs = gs.param_learning_rates(config, self.spatial_lr_scale, iteration)
+                    wd = None
+                    if config.appearance_enabled and config.appearance_embedding_regularization:
+                        wd = {"appearance_embeddings": config.appearance_embedding_regularization}
+                    self.adam = gs.adam_update(trainable, param_grads, self.adam, lrs,
+                                               weight_decay=wd)
+            metrics["num_rendered"] = pkg.num_rendered
+            metrics["overflow"] = pkg.overflow
+            metrics["max_tiles"] = pkg.max_tiles
+            metrics["num_gaussians"] = torch.sum(self.aux.alive)
+        return metrics
+
+    def _check_schedule(self, iteration: int):
+        """Densify/prune and the opacity reset are not ported: raise where
+        the schedule reaches them instead of skipping them."""
+        config = self.config
+        if iteration >= config.densify_until_iter:
+            return
+        if (iteration > config.densify_from_iter
+                and iteration % config.densification_interval == 0):
+            raise NotImplementedError(
+                f"iteration {iteration} densifies (densify_from_iter={config.densify_from_iter}, "
+                f"densification_interval={config.densification_interval}): densify_and_prune "
+                "is not ported yet (ROADMAP.md, Queue 1, densify/prune/reset/grow_capacity)")
+        if iteration % config.opacity_reset_interval == 0:
+            raise NotImplementedError(
+                f"iteration {iteration} resets opacities (opacity_reset_interval="
+                f"{config.opacity_reset_interval}): reset_opacity is not ported yet "
+                "(ROADMAP.md, Queue 1, densify/prune/reset/grow_capacity)")
+
+    def train_iteration(self, step: int, camera_id: Optional[int] = None) -> Dict[str, float]:
+        """One training iteration (`step` is 0-indexed). Picks the camera
+        from a shuffled stack (the JAX package's sequence) unless
+        `camera_id` is given; returns the metrics as Python numbers."""
+        if self.train_cameras is None:
+            raise RuntimeError("the method was not constructed with a train_dataset")
+        iteration = step + 1
+        self._check_schedule(iteration)
+        self.step = step
+        if iteration % 1000 == 0:   # SH warm-up
+            self.aux = self.aux._replace(active_sh_degree=torch.clamp_max(
+                self.aux.active_sh_degree + 1, self.config.sh_degree))
+        if camera_id is None:
+            if not self._viewpoint_stack:
+                self._viewpoint_stack = list(range(len(self.train_cameras)))
+            camera_id = self._viewpoint_stack.pop(
+                self._random.randint(0, len(self._viewpoint_stack) - 1))
+        densify_enabled = iteration < self.config.densify_until_iter
+        metrics = self._train_step(camera_id, iteration, densify_enabled)
+        if not densify_enabled and iteration % 100 == 0 and iteration < self.config.iterations - 100:
+            self._refresh_filter()
+        # one host transfer for every metric (each is exact in f32)
+        keys = list(metrics.keys())
+        vec = torch.stack([metrics[k].to(torch.float32) for k in keys]).cpu().numpy()
+        out = {k: float(v) for k, v in zip(keys, vec)}
+        out["num_gaussians"] = int(out["num_gaussians"])
+        self._maybe_grow_tile_budget(out["overflow"], out["max_tiles"])
+        self.step = step + 1
+        return out
+
+    def _maybe_grow_tile_budget(self, overflow: float, max_tiles: float):
+        """Raise the per-Gaussian tile budget (and the big-Gaussian pool)
+        after 10 steps in a row with truncated contributions, as the JAX
+        package does; here that only changes the config, since nothing is
+        compiled per budget. Stops growing once a grow did not cut the
+        overflow by 30 % or the budget reached 128."""
+        self._overflow_streak = self._overflow_streak + 1 if overflow > 0 else 0
+        if self._overflow_streak < 10:
+            return
+        self._overflow_streak = 0
+        if getattr(self, "_tile_budget_saturated", False):
+            return
+        prev = getattr(self, "_overflow_at_last_grow", None)
+        if (prev is not None and overflow > 0.7 * prev) or self.config.max_tiles_per_gaussian >= 128:
+            self._tile_budget_saturated = True
+            logger.warning("Rasterizer overflow persists at %d after growing the tile budget to "
+                           "%d (prev overflow %s): keeping the current budget",
+                           int(overflow), self.config.max_tiles_per_gaussian, prev)
+            return
+        self._overflow_at_last_grow = overflow
+        old = self.config.max_tiles_per_gaussian
+        want = int(max_tiles) if max_tiles else old * 3 // 2
+        self.config.max_tiles_per_gaussian = min(max(old * 3 // 2, want) + 1, 128)
+        self.config.pallas_big_fraction = min(self.config.pallas_big_fraction * 1.5, 1.0)
+        logger.info("Persistent rasterizer overflow (%d): growing max_tiles_per_gaussian "
+                    "%d -> %d, big_fraction -> %.3f", int(overflow), old,
+                    self.config.max_tiles_per_gaussian, self.config.pallas_big_fraction)
+
+    # ----------------------------------------------------------------- render
 
     def get_embedding(self, train_image_id: Optional[int] = None) -> Optional[torch.Tensor]:
         if not self.config.appearance_enabled:
             return None
         if train_image_id is not None:
-            return self.params["appearance_embeddings"][train_image_id]
-        return torch.zeros_like(self.params["appearance_embeddings"][0])
+            return self.params["appearance_embeddings"][train_image_id].detach()
+        return torch.zeros_like(self.params["appearance_embeddings"][0]).detach()
 
     def get_train_embedding(self, index: int) -> Optional[np.ndarray]:
         e = self.get_embedding(index)
@@ -101,3 +425,24 @@ class WildGaussians:
             if pkg.depth is not None:
                 out["depth"] = pkg.depth[:h, :w].cpu().numpy()
         return out
+
+    # ------------------------------------------------------------- checkpoints
+
+    def save(self, path: str):
+        """Write `chkpnt-<step>.npz` (the JAX package's `_state_dict` keys:
+        params, Adam moments and step, every aux buffer, spatial_lr_scale),
+        its `.sha256` and `config.yaml`. The JAX package loads it."""
+        if not hasattr(self, "adam"):
+            raise RuntimeError("save needs a training state (construct with train_dataset)")
+        os.makedirs(path, exist_ok=True)
+        state = state_to_numpy(self.params, self.mlp, self.aux, self.adam, self.spatial_lr_scale)
+        ckpt_path = os.path.join(path, f"chkpnt-{self.step}.npz")
+        np.savez(ckpt_path, **state)
+        with open(os.path.join(path, "config.yaml"), "w", encoding="utf8") as f:
+            f.write(config_to_yaml(self.config))
+        sha = hashlib.sha256()
+        for k in sorted(state):
+            sha.update(k.encode())
+            sha.update(state[k].tobytes())
+        with open(ckpt_path + ".sha256", "w", encoding="utf8") as f:
+            f.write(sha.hexdigest())

@@ -1,24 +1,30 @@
-"""The fused multi-pass tile blend (kernel K1) and the sort-engine rasterizer.
+"""The fused multi-pass tile blend, its backward, and the sort-engine
+rasterizer.
 
-Counterpart of the forward half of `_make_pallas_blend_vjp` and of
-`rasterize_pallas_multi` in `wildgaussians_tpu/ops/rasterize_pallas.py`
-(single chip, sort engine, exact f32 table: the JAX package's pack16 f16 /
-rgb10 table and its per-pass color scale exist only for TPU packing).
+Counterpart of `_make_pallas_blend_vjp` and `rasterize_pallas_multi` in
+`wildgaussians_tpu/ops/rasterize_pallas.py` (single chip, sort engine, exact
+f32 table: the JAX package's pack16 f16 / rgb10 table, its per-pass color
+scale and its f16-pair gradient rows exist only for TPU packing). Three
+kernels, each with a plain PyTorch version beside it:
 
-`blend_forward` is K1's wrapper. It dispatches on the device of the table
-it is given: a CPU tensor goes to `blend_forward_plain`, a CUDA tensor to
-the kernel in `csrc/blend_fwd.cu` (or an error). There is no fallback from
-one to the other.
+  K1 `blend_forward`   csrc/blend_fwd.cu    the blend of 1-3 color passes
+  K2 `blend_backward`  csrc/blend_bwd.cu    per-entry gradient rows
+  K3 `tier2_merge`     csrc/tier2_merge.cu  the big-Gaussian slot sums
+
+Each wrapper dispatches on the device of the tensor it is given: a CPU
+tensor goes to the plain version, a CUDA tensor to the kernel (or an error).
+There is no fallback from one to the other. `_DifferentiableBlend` chains
+them into the autograd graph.
 """
 import ctypes
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..spans import span
 from . import _build
 from .rasterize_tiled import ALPHA_MAX, ALPHA_MIN, T_EPS, TileGrid, tiles_to_image
-from .sort_engine import _build_sorted_table
+from .sort_engine import SortEngineSizes, _build_sorted_table, _sort_engine_sizes
 
 P_PIX = 256  # 16x16 tile
 
@@ -37,6 +43,9 @@ class _PlainBatch(NamedTuple):
     alpha: torch.Tensor     # [B, P, L]
     lg: torch.Tensor        # [B, P, L] log1p(-alpha) where used, else 0
     t_inc: torch.Tensor     # [B, P, L] T after the entry, exp(inclusive cumsum of lg)
+    dx: torch.Tensor        # [B, P, L] entry x - pixel x
+    dy: torch.Tensor        # [B, P, L]
+    e: torch.Tensor         # [B, P, L] exp(power)
 
 
 def _plain_batches(table, tile_starts, tile_counts, grid: TileGrid):
@@ -73,12 +82,13 @@ def _plain_batches(table, tile_starts, tile_counts, grid: TileGrid):
             dy = ent[1][:, None, :] - py.to(torch.float32)[..., None]
             ca, cb, cc, op = (ent[r][:, None, :] for r in (2, 3, 4, 5))
             power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-            alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+            e = torch.exp(power)
+            alpha = torch.clamp_max(op * e, ALPHA_MAX)
             power_ok = em[:, None, :] & (power <= 0.0)
             use = power_ok & (alpha >= ALPHA_MIN)
             lg = torch.where(use, torch.log1p(-torch.where(use, alpha, 0.0)), 0.0)
             t_inc = torch.exp(torch.cumsum(lg, dim=-1))
-            yield _PlainBatch(t0, t1, ent, em, power_ok, use, alpha, lg, t_inc)
+            yield _PlainBatch(t0, t1, ent, em, power_ok, use, alpha, lg, t_inc, dx, dy, e)
         t0 = t1
 
 
@@ -200,31 +210,302 @@ def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
 blend_forward.launches = 0
 
 
+def grad_rows(n_passes: int) -> int:
+    """Per-entry gradient rows of the blend backward: dmx, dmy, dca, dcb,
+    dcc, dop, the fused NDC abs channel, then r, g, b per color pass."""
+    return 7 + 3 * n_passes
+
+
+def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
+                         tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
+                         gcol: torch.Tensor, gte: torch.Tensor, colors: torch.Tensor,
+                         final_t: torch.Tensor, ndc_scale: Tuple[float, float]) -> torch.Tensor:
+    """Plain PyTorch K2, in the JAX kernel's log-space form (K1's plain
+    quantities, `_plain_batches`).
+
+    gcol [n_passes, T, 256, 3] is the color cotangent, gte [T, 256] the
+    summed gt_eff (the final_T cotangent plus gcol . bg over the passes),
+    colors [n_passes, T, 256, 3] and final_t [T, 256] K1's outputs (colors
+    without the background). Per (pixel, entry), where the entry
+    contributes: w = alpha T_at; per pass cg = gc . col, prefix = inclusive
+    cumsum of w cg, sfx = out . gc - prefix; dalpha = T_at sum(cg) -
+    (sum(sfx) + gte final_T) / (1 - alpha), zeroed where alpha is capped.
+    Returns [7 + 3 n_passes, N] rows summed over each tile's pixels, zero
+    for every entry no pixel reaches."""
+    sx, sy = float(ndc_scale[0]), float(ndc_scale[1])
+    out = torch.zeros((grad_rows(n_passes), table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    starts = tile_starts.long()
+    for b in _plain_batches(table, tile_starts, tile_counts, grid):
+        t0, t1 = b.t0, b.t1
+        rinv = 1.0 / torch.where(b.use, 1.0 - b.alpha, 1.0)
+        t_at = b.t_inc * rinv
+        contrib = b.use & (b.t_inc >= T_EPS)
+        w = torch.where(contrib, b.alpha * t_at, 0.0)                   # [B, P, L]
+        cg_sum = torch.zeros_like(w)
+        sfx_sum = torch.zeros_like(w)
+        dcols = []
+        for i in range(n_passes):
+            gc = gcol[i, t0:t1]                                          # [B, P, 3]
+            col = b.ent[6 + 3 * i:9 + 3 * i]                             # [3, B, L]
+            cg = torch.einsum("bpc,cbl->bpl", gc, col)
+            prefix = torch.cumsum(w * cg, dim=-1)
+            out_dot_g = (colors[i, t0:t1] * gc).sum(-1)                  # [B, P]
+            cg_sum = cg_sum + cg
+            sfx_sum = sfx_sum + (out_dot_g[..., None] - prefix)
+            dcols.append(torch.einsum("bpc,bpl->cbl", gc, w))
+        gte_ft = (gte[t0:t1] * final_t[t0:t1])[..., None]
+        dalpha = torch.where(contrib, t_at * cg_sum - (sfx_sum + gte_ft) * rinv, 0.0)
+        dalpha = torch.where(b.alpha >= ALPHA_MAX, 0.0, dalpha)
+        ca, cb, cc = (b.ent[r][:, None, :] for r in (2, 3, 4))
+        dpower = dalpha * b.alpha
+        dmx_pix = dpower * (-(ca * b.dx + cb * b.dy))
+        dmy_pix = dpower * (-(cc * b.dy + cb * b.dx))
+        rows = torch.stack(
+            [dmx_pix.sum(1), dmy_pix.sum(1),
+             (dpower * (-0.5 * b.dx * b.dx)).sum(1),
+             (dpower * (-b.dx * b.dy)).sum(1),
+             (dpower * (-0.5 * b.dy * b.dy)).sum(1),
+             (dalpha * b.e).sum(1),
+             sx * dmx_pix.abs().sum(1) + sy * dmy_pix.abs().sum(1)]
+            + [dc[c] for dc in dcols for c in range(3)])                 # [G, B, L]
+        pos = torch.arange(rows.shape[-1], device=table.device)
+        idx = starts[t0:t1, None] + pos[None, :]
+        out[:, idx[b.em]] = rows[:, b.em]
+    return out
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong,
+                 ctypes.c_void_p]
+
+
+def _bwd_kernel():
+    fn = _build.load("blend_bwd").wg_blend_bwd
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_f32(name, x, shape, device):
+    if x.dtype != torch.float32 or tuple(x.shape) != tuple(shape) or not x.is_contiguous() \
+            or x.device != device:
+        raise ValueError(f"{name} must be a contiguous f32 tensor of shape {tuple(shape)} on "
+                         f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
+                   tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
+                   gcol: torch.Tensor, gte: torch.Tensor, colors: torch.Tensor,
+                   final_t: torch.Tensor, ndc_scale: Tuple[float, float]) -> torch.Tensor:
+    """K2: the per-entry gradient rows [7 + 3 n_passes, N] of the blend
+    (see blend_backward_plain for the arguments). A CPU table runs the
+    plain version; a CUDA table launches the kernel in
+    `csrc/blend_bwd.cu` and adds one to `blend_backward.launches`."""
+    if table.device.type == "cpu":
+        return blend_backward_plain(table, tile_starts, tile_counts, grid, n_passes,
+                                    gcol, gte, colors, final_t, ndc_scale)
+    if table.device.type != "cuda":
+        raise ValueError(f"blend_backward: unsupported device {table.device}")
+    T = grid.num_tiles
+    if not 1 <= n_passes <= 3:
+        raise ValueError(f"blend_backward takes 1-3 color passes, got {n_passes}")
+    if grid.tile_size != 16:
+        raise ValueError("blend_backward works on 16x16 tiles")
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[0] != 6 + 3 * n_passes:
+        raise ValueError(f"table must be f32 [{6 + 3 * n_passes}, N], got {table.dtype} {tuple(table.shape)}")
+    if table.stride(1) != 1:
+        raise ValueError("table rows must be contiguous")
+    for name, x in (("tile_starts", tile_starts), ("tile_counts", tile_counts)):
+        if x.dtype != torch.int32 or not x.is_contiguous() or x.shape[0] < T or x.device != table.device:
+            raise ValueError(f"{name} must be a contiguous int32 tensor of >= {T} tiles on {table.device}")
+    _check_f32("gcol", gcol, (n_passes, T, P_PIX, 3), table.device)
+    _check_f32("colors", colors, (n_passes, T, P_PIX, 3), table.device)
+    _check_f32("gte", gte, (T, P_PIX), table.device)
+    _check_f32("final_t", final_t, (T, P_PIX), table.device)
+    grads = torch.zeros((grad_rows(n_passes), table.shape[1]), dtype=torch.float32,
+                        device=table.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
+                 tile_counts.data_ptr(), T, grid.grid_x, n_passes,
+                 gcol.data_ptr(), gte.data_ptr(), colors.data_ptr(), final_t.data_ptr(),
+                 float(ndc_scale[0]), float(ndc_scale[1]), grads.data_ptr(), grads.stride(0),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed with CUDA error {err}")
+    blend_backward.launches += 1
+    return grads
+
+
+blend_backward.launches = 0
+
+
+def tier2_merge_plain(sums: torch.Tensor, big_list: torch.Tensor,
+                      bigs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K3: sums[:, big_list[j]] += bigs[:, j] in place, for the
+    pool slots whose index is below n = sums.shape[1]; big_list is unique."""
+    valid = big_list < sums.shape[1]
+    idx = big_list[valid].long()
+    sums[:, idx] = sums[:, idx] + bigs[:, valid]
+    return sums
+
+
+_T2_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _t2_kernel():
+    fn = _build.load("tier2_merge").wg_tier2_merge
+    fn.argtypes = _T2_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tier2_merge(sums: torch.Tensor, big_list: torch.Tensor, bigs: torch.Tensor) -> torch.Tensor:
+    """K3: merge the tier-2 slot sums bigs [rows, m_cap] into the per-Gaussian
+    sums [rows, n] in place at the sorted, unique big_list [m_cap] (entries
+    >= n are padding). A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel in `csrc/tier2_merge.cu` and adds one to
+    `tier2_merge.launches`. Returns sums."""
+    if sums.device.type == "cpu":
+        return tier2_merge_plain(sums, big_list, bigs)
+    if sums.device.type != "cuda":
+        raise ValueError(f"tier2_merge: unsupported device {sums.device}")
+    rows, n = sums.shape
+    m = big_list.shape[0]
+    if sums.dtype != torch.float32 or sums.stride(1) != 1:
+        raise ValueError("sums must be f32 with contiguous rows")
+    if bigs.dtype != torch.float32 or tuple(bigs.shape) != (rows, m) or bigs.stride(1) != 1 \
+            or bigs.device != sums.device:
+        raise ValueError(f"bigs must be f32 [{rows}, {m}] with contiguous rows on {sums.device}")
+    if big_list.dtype != torch.int32 or not big_list.is_contiguous() or big_list.device != sums.device:
+        raise ValueError(f"big_list must be a contiguous int32 tensor on {sums.device}")
+    fn = _t2_kernel()
+    with torch.cuda.device(sums.device):
+        stream = torch.cuda.current_stream(sums.device).cuda_stream
+        err = fn(sums.data_ptr(), sums.stride(0), n, bigs.data_ptr(), bigs.stride(0),
+                 big_list.data_ptr(), m, rows, stream)
+    if err != 0:
+        raise RuntimeError(f"tier2_merge kernel launch failed with CUDA error {err}")
+    tier2_merge.launches += 1
+    return sums
+
+
+tier2_merge.launches = 0
+
+
+def slot_sums(rows_by_slot: torch.Tensor, sizes: SortEngineSizes, n: int):
+    """Cell-major slot sums (the JAX package's `slot_base` / `slot_big`):
+    per Gaussian, the sum of its d1 tier-1 slots [rows, n], and per big-pool
+    slot the sum of its d2_extra tier-2 slots [rows, m_cap], each summed
+    left to right."""
+    sums = rows_by_slot[:, 0:n]
+    for j in range(1, sizes.d1):
+        sums = sums + rows_by_slot[:, j * n:(j + 1) * n]
+    slots1, m_cap = n * sizes.d1, sizes.m_cap
+    bigs = rows_by_slot[:, slots1:slots1 + m_cap]
+    for j2 in range(1, sizes.d2_extra):
+        bigs = bigs + rows_by_slot[:, slots1 + j2 * m_cap:slots1 + (j2 + 1) * m_cap]
+    return sums.contiguous(), bigs.contiguous()
+
+
+class _DifferentiableBlend(torch.autograd.Function):
+    """The sort-engine blend with its backward: the counterpart of
+    `_make_pallas_blend_vjp` (single chip, exact f32 table).
+
+    Forward: the sort engine and K1 for 1-3 passes; returns the colors with
+    the background [n_passes, T, 256, 3] and final_T [T, 256] (shared by
+    the passes). Backward: the cotangent pack, K2, dbg, the un-sort of the
+    per-entry rows to slot order, the cell-major slot sums and K3. Gradients
+    go to mean2d, conic, opacity, the color stack, the abs-gradient hook
+    ([N, 2]: ch0 = sx sum|dmx_pix| + sy sum|dmy_pix|, ch1 = 0) and bg."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, colors_stack, absgrad_hook, bg,
+                depth, rect_min, rect_max, tiles_touched, valid, grid: TileGrid,
+                max_tiles_per_gaussian: int, d_small: int, big_fraction: float,
+                ndc_scale: Tuple[float, float], aux: Dict[str, torch.Tensor]):
+        del absgrad_hook   # its gradient is the fused abs channel
+        n, n_passes = mean2d.shape[0], colors_stack.shape[0]
+        with span("sort_engine"):
+            st = _build_sorted_table(
+                grid, n, max_tiles_per_gaussian, n_passes, d_small, big_fraction,
+                mean2d, conic, opacity, colors_stack, depth, rect_min, rect_max,
+                tiles_touched, valid)
+        with span("blend_kernel"):
+            colors, final_t, walked = blend_forward(st.table, st.tile_starts, st.tile_counts,
+                                                    grid, n_passes)
+        ctx.save_for_backward(st.table, st.sorted_flat, st.tile_starts, st.tile_counts,
+                              st.big_list, colors, final_t, bg)
+        ctx.grid, ctx.ndc_scale, ctx.n = grid, ndc_scale, n
+        ctx.sizes = _sort_engine_sizes(grid, n, max_tiles_per_gaussian, d_small, big_fraction)
+        aux.update(table=st.table, tile_starts=st.tile_starts, tile_counts=st.tile_counts,
+                   walked=walked, vis_count=st.vis_count, big_list=st.big_list,
+                   sorted_flat=st.sorted_flat)
+        return colors + final_t[..., None] * bg, final_t
+
+    @staticmethod
+    def backward(ctx, g_color, g_final_t):
+        table, sorted_flat, tile_starts, tile_counts, big_list, colors, final_t, bg = \
+            ctx.saved_tensors
+        n_passes = colors.shape[0]
+        sizes = ctx.sizes
+        n = ctx.n
+        g_color = g_color.contiguous()
+        # cotangent pack: gt_eff summed over the passes (final_T is shared)
+        gte = (g_final_t + torch.einsum("itpc,c->tp", g_color, bg)).contiguous()
+        with span("blend_bwd_kernel"):
+            eg = blend_backward(table, tile_starts, tile_counts, ctx.grid, n_passes,
+                                g_color, gte, colors, final_t, ctx.ndc_scale)
+        dbg = torch.einsum("itpc,tp->c", g_color, final_t)
+        with span("unsort"):
+            # the sort engine's order is a permutation of the slots; slots
+            # past the binned entries (empty cells) get zero rows
+            by_slot = torch.zeros((eg.shape[0], sizes.R), dtype=eg.dtype, device=eg.device)
+            by_slot[:, sorted_flat[:eg.shape[1]].long()] = eg
+            sums, bigs = slot_sums(by_slot, sizes, n)
+        if sizes.m_cap > 0:
+            with span("tier2_merge"):
+                tier2_merge(sums, big_list, bigs)
+        dabs = torch.stack([sums[6], torch.zeros_like(sums[6])], dim=-1)
+        dcolors = torch.stack([sums[7 + 3 * i:10 + 3 * i].T for i in range(n_passes)])
+        return (sums[0:2].T, sums[2:5].T, sums[5], dcolors, dabs, dbg,
+                None, None, None, None, None, None, None, None, None, None, None)
+
+
 def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
                     pre_depth, pre_rect_min, pre_rect_max, pre_tiles_touched,
                     pre_valid, bg, *, grid: TileGrid,
                     max_tiles_per_gaussian: int = 16, d_small: int = 4,
-                    big_fraction: float = 0.16
+                    big_fraction: float = 0.16,
+                    absgrad_hook: Optional[torch.Tensor] = None,
+                    ndc_scale: Tuple[float, float] = (1.0, 1.0)
                     ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Render several color sets over one shared sorted geometry.
 
     Returns ([(color [H,W,3], final_T [H,W]) per color set], aux): aux
     holds the blend's inputs (`table`, `tile_starts`, `tile_counts`), its
-    per-tile `walked` counts and the sort engine's per-Gaussian `vis_count`."""
-    n = mean2d.shape[0]
-    with span("sort_engine"):
-        stack = torch.stack(colors_list)
-        st = _build_sorted_table(
-            grid, n, max_tiles_per_gaussian, len(colors_list), d_small, big_fraction,
-            mean2d, conic, opacity, stack, pre_depth, pre_rect_min, pre_rect_max,
-            torch.clamp_max(pre_tiles_touched, max_tiles_per_gaussian), pre_valid)
-    with span("blend_kernel"):
-        colors, final_t, walked = blend_forward(st.table, st.tile_starts, st.tile_counts,
-                                                grid, len(colors_list))
+    per-tile `walked` counts and the sort engine's per-Gaussian `vis_count`,
+    `big_list` and slot order `sorted_flat`.
+
+    Differentiable (`_DifferentiableBlend`, with K2 and K3 in its backward)
+    wherever grad is enabled; `absgrad_hook` [N, 2] (zeros) then receives
+    the fused abs-gradient channel, scaled by `ndc_scale` = (0.5 W, 0.5 H).
+    Under `no_grad` nothing is kept for a backward."""
+    if absgrad_hook is None:
+        absgrad_hook = torch.zeros((mean2d.shape[0], 2), dtype=torch.float32,
+                                   device=mean2d.device)
+    aux: Dict[str, torch.Tensor] = {}
+    color, final_t = _DifferentiableBlend.apply(
+        mean2d, conic, opacity, torch.stack(colors_list), absgrad_hook, bg,
+        pre_depth, pre_rect_min, pre_rect_max,
+        torch.clamp_max(pre_tiles_touched, max_tiles_per_gaussian), pre_valid, grid,
+        max_tiles_per_gaussian, d_small, big_fraction, ndc_scale, aux)
     with span("compose"):
         T_img = tiles_to_image(final_t, grid)
-        images = [(tiles_to_image(colors[i] + final_t[..., None] * bg, grid), T_img)
-                  for i in range(len(colors_list))]
-    aux = {"table": st.table, "tile_starts": st.tile_starts,
-           "tile_counts": st.tile_counts, "walked": walked, "vis_count": st.vis_count}
+        images = [(tiles_to_image(color[i], grid), T_img) for i in range(len(colors_list))]
     return images, aux

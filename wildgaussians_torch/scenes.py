@@ -4,18 +4,18 @@
 the repository's `bench.py`: surface-attached, flat Gaussians with bimodal
 opacities, which saturate transmittance the way a trained scene does.
 `surfel_state` turns such a scene into a full WildGaussians parameter state
-in the JAX package's checkpoint layout (random appearance weights from a
-seeded torch.Generator), so that it loads through `WildGaussians`.
+in the JAX package's checkpoint layout (random appearance weights drawn as
+the JAX package's `init_mlp` draws them), so that it loads through
+`WildGaussians`.
 """
 import os
 from typing import Dict
 
 import numpy as np
-import torch
 
 from .config import Config, load_config_yaml
 from .io.convert import save_checkpoint
-from .models.appearance import AppearanceMLP
+from .models.appearance import init_mlp
 from .ops.sh import C0
 
 
@@ -116,7 +116,7 @@ def surfel_state(config: Config, n_gaussians: int, width: int, height: int,
 
     The scene's colors become the SH DC terms (with small random higher
     bands); the per-Gaussian and image embeddings and the appearance MLP
-    (nn.Linear's default init) are random, from `seed`. The 3D filter is a
+    (the JAX package's init) are random, from `seed`. The 3D filter is a
     fifth of a pixel at each Gaussian's depth."""
     rng = np.random.default_rng(seed)
     xyz, scales, rots, opac, colors = make_surfel_scene(rng, n_gaussians, width, height, f)
@@ -140,11 +140,8 @@ def surfel_state(config: Config, n_gaussians: int, width: int, height: int,
             0, 1, (n_gaussians, 6 * config.appearance_n_fourier_freqs)).astype(f32)
         flat["params/appearance_embeddings"] = rng.normal(
             0, 0.5, (NUM_IMAGES, config.appearance_embedding_dim)).astype(f32)
-        mlp = AppearanceMLP.from_config(config, torch.Generator().manual_seed(seed))
-        for i, lin in enumerate(mlp.layers):
-            # the checkpoint keeps [in, out]
-            flat[f"params/appearance_mlp/w{i}"] = lin.weight.detach().T.contiguous().numpy()
-            flat[f"params/appearance_mlp/b{i}"] = lin.bias.detach().numpy()
+        for k, v in init_mlp(rng, config).items():   # the checkpoint keeps [in, out]
+            flat[f"params/appearance_mlp/{k}"] = v
     return flat
 
 

@@ -1,13 +1,16 @@
-"""Public contracts the serving path needs: cameras and the render output.
+"""Public contracts of the port: cameras, the training dataset and the
+render output.
 
 The port's own copy of the parts of `wildgaussians_tpu/types.py` that
-rendering uses (Cameras, new_cameras, camera_model_to_int, RenderOutput).
+rendering and training use (Cameras, new_cameras, camera_model_to_int,
+Dataset, RenderOutput).
 Containers are numpy-based on the host; the render path moves what it needs
 to the device itself.
 """
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Iterator, Literal, Optional, Sequence, get_args
+from typing import (Callable, Dict, Iterator, List, Literal, Optional, Sequence, Union,
+                    get_args)
 
 import numpy as np
 
@@ -120,6 +123,26 @@ def new_cameras(
         nears_fars=nears_fars,
         metadata=metadata,
     )
+
+
+class _IncompleteDataset(TypedDict, total=True):
+    cameras: Cameras
+    image_paths: List[str]
+    image_paths_root: str
+    mask_paths: Optional[List[str]]
+    mask_paths_root: Optional[str]
+    metadata: Dict
+    masks: Optional[Union[np.ndarray, List[np.ndarray]]]
+    points3D_xyz: Optional[np.ndarray]
+    points3D_rgb: Optional[np.ndarray]
+    images_points3D_indices: Optional[List[np.ndarray]]
+
+
+class Dataset(_IncompleteDataset):
+    """A loaded training set: cameras, images (uint8 or float [H, W, 3+]),
+    optional occluder masks and the sparse point cloud that seeds the
+    Gaussians."""
+    images: Union[np.ndarray, List[np.ndarray]]
 
 
 class RenderOutput(TypedDict, total=False):
