@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card (an H100;
 the kernels are built for sm_90a). Every phase is fatal on failure:
 
   1. the card (name and power limit from nvidia-smi), torch, CUDA and nvcc;
-  2. build every CUDA kernel of the serving and training paths from
+  2. build every CUDA kernel of the serving and training paths (K1-K3, and
+     the radix pass K5 and its inverse K6 of the partition engine) from
      wildgaussians_torch/csrc with nvcc, one process per source, all started
      together, printing nvcc's register and shared-memory report;
   3. check, on a 20k-Gaussian surfel scene at 512x384: each kernel against
@@ -15,11 +16,16 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      K3), the whole render path on the card against the same path on the
      CPU, and one training step on the card against the same step on the
      CPU from the same init (every parameter's gradient and the metrics);
+     then the same render path and training step with `pallas_binning:
+     partition`, and K5 and K6 against their plain versions (bit for bit)
+     on every call the card's partition step made;
   4. the serving path at full width: a 1.5M-Gaussian, SH-degree-3,
      appearance-on checkpoint in the JAX package's format, loaded through
      WildGaussians and asked for 8 renders at 1280x720 from 4 poses (one with
-     depth, one with an explicit embedding; the first is a warm-up), then K1
-     checked and timed at the shapes the path gave it, beside its bound;
+     depth, one with an explicit embedding; the first is a warm-up); K1 held
+     against its plain version on the arguments the first request and the
+     depth request passed it (recorded by wrapping the wrapper for those
+     requests), and timed on the first's beside its bound;
   5. where a request's time goes, on the same model: the render's stage
      spans timed on the device (wildgaussians_torch/spans.py), then one
      torch.profiler window of requests for the device's busy time, idle
@@ -30,14 +36,28 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      configs/default.yml (uncertainty disabled), for 8 train_iteration steps
      (the first a warm-up): step time, loss, PSNR and counters per step,
      peak memory, device time per stage span, and one torch.profiler window
-     of steps; every kernel of the step launches once per step;
-  7. K1, K2 and K3 held against their plain versions on the arguments the
-     first training step passed them (recorded by wrapping the wrappers for
-     that step), and K2 and K3 timed there beside their plain versions,
-     their bounds and (K3) the PyTorch call that computes the same function.
+     of steps; every kernel of the step launches once per step. K1, K2 and
+     K3 are held against their plain versions on the arguments the warm-up
+     step passed them, and K2 and K3 timed there beside their plain
+     versions, their bounds and (K3) the PyTorch call that computes the
+     same function;
+  7. the partition engine at full width, through the same two phases: the
+     checkpoint of step 4 with its config naming `pallas_binning:
+     partition`, asked for 4 renders, and 4 training steps from step 6's
+     set-up with `pallas_binning: partition` (the first of each a warm-up):
+     request and step times, the engine's stage spans, a profiler window,
+     peak memory, loss and PSNR, and the render's agreement with the sort
+     engine's (printed only: entry order may differ where 24-bit depth keys
+     tie). K1 and K5 are held against their plain versions on the arguments
+     the first request passed them, K1, K2, K3, K5 and K6 on those of the
+     first step, and K5 and K6 timed on each of that step's calls beside
+     their bounds, their plain versions and the PyTorch calls that compute
+     the same function. K5 runs 15 times per request and per step, K6 15
+     times per step.
 
-Each path's launch counts are read over exactly that path's run (the counts
-are set to 0 just before it). It prints one {"kernels": [...]} line, the
+Each path's launch counts are read over exactly that path's requests or
+steps (the counts are set to 0 just before them; the launches of the holds
+between them are not counted). It prints one {"kernels": [...]} line, the
 nvidia-smi line of the card, and as its last line {"ok": true, "device":
 {...}}. Without a CUDA card it exits with 1 and prints no result.
 """
@@ -87,6 +107,7 @@ TOL_GRAD_ATOL, TOL_GRAD_RTOL, TOL_GRAD_FRAC, TOL_METRIC = 5e-3, 5e-2, 1e-3, 1e-3
 PROFILE_REQUESTS = 5
 CHECK_SKY = 2000            # sky candidates of the check phase's training set
 TRAIN_STEPS, TRAIN_PROFILE_STEPS = 8, 2
+PARTITION_REQUESTS, PARTITION_STEPS = 4, 4
 
 
 def check(cond, msg):
@@ -112,24 +133,34 @@ def nvcc_line():
 
 
 def kernels():
-    """Every kernel of the serving and training paths, with its wrapper, its
-    plain version and the paths that launch it."""
-    from wildgaussians_torch.ops import blend
+    """Every kernel of the serving and training paths, over the sort and
+    the partition engine, with its wrapper, its plain version and the
+    paths that launch it."""
+    from wildgaussians_torch.ops import blend, partition
     return [dict(name="blend_fwd", route="cuda", source="wildgaussians_torch/csrc/blend_fwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:376",
                  wrapper=blend.blend_forward, plain=blend.blend_forward_plain,
-                 paths=("serve", "train")),
+                 paths=("serve", "train", "partition_serve", "partition_train")),
             dict(name="blend_bwd", route="cuda", source="wildgaussians_torch/csrc/blend_bwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:493",
                  also_replaces=["wildgaussians_tpu/ops/rasterize_pallas.py:482",
                                 "wildgaussians_tpu/ops/rasterize_pallas.py:501"],
                  wrapper=blend.blend_backward, plain=blend.blend_backward_plain,
-                 paths=("train",)),
+                 paths=("train", "partition_train")),
             dict(name="tier2_merge", route="cuda",
                  source="wildgaussians_torch/csrc/tier2_merge.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:872",
                  wrapper=blend.tier2_merge, plain=blend.tier2_merge_plain,
-                 paths=("train",))]
+                 paths=("train", "partition_train")),
+            dict(name="radix_pass", route="cuda", source="wildgaussians_torch/csrc/radix_pass.cu",
+                 replaces="wildgaussians_tpu/ops/partition.py:173",
+                 wrapper=partition.radix_pass, plain=partition.radix_pass_plain,
+                 paths=("partition_serve", "partition_train")),
+            dict(name="radix_unpass", route="cuda",
+                 source="wildgaussians_torch/csrc/radix_unpass.cu",
+                 replaces="wildgaussians_tpu/ops/partition.py:376",
+                 wrapper=partition.radix_unpass, plain=partition.radix_unpass_plain,
+                 paths=("partition_train",))]
 
 
 def kernel_by_name(name):
@@ -169,6 +200,61 @@ def blend_calls(captured):
             captured[name] = (args[0].clone(),) + args[1:] if name == "tier2_merge" else args
         stack.enter_context(calls_of(blend, attr, record))
     return stack
+
+
+def radix_calls(captured):
+    """A context in which K5's and K6's wrappers append the arguments of
+    every call to `captured["radix_pass"]` / `captured["radix_unpass"]`, as
+    (args, kwargs), by reference (nothing changes them after the call)."""
+    from wildgaussians_torch.ops import partition
+    stack = contextlib.ExitStack()
+    for attr in ("radix_pass", "radix_unpass"):
+        def record(*args, attr=attr, **kwargs):
+            captured.setdefault(attr, []).append((args, kwargs))
+        stack.enter_context(calls_of(partition, attr, record))
+    return stack
+
+
+def kernel_calls(captured, radix):
+    """blend_calls(captured) and radix_calls(radix) together."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(blend_calls(captured))
+    stack.enter_context(radix_calls(radix))
+    return stack
+
+
+def set_binning(ckpt, binning):
+    """Make the checkpoint's config.yaml name `binning` (its last key wins)."""
+    with open(os.path.join(ckpt, "config.yaml"), "a", encoding="utf8") as f:
+        f.write(f"pallas_binning: {binning}\n")
+    return ckpt
+
+
+def check_radix(calls, label):
+    """K5 and K6 against their plain versions on recorded calls: both only
+    move values, so bit for bit (an invalid Gaussian's attributes may be
+    NaN, and move as they are). Returns each recorded kernel's largest
+    |difference| (0), by name."""
+    worst = {}
+    for name in ("radix_pass", "radix_unpass"):
+        if name not in calls:
+            continue     # a request runs no K6
+        k = kernel_by_name(name)
+        worst[name] = 0.0
+        for args, kwargs in calls[name]:
+            got = k["wrapper"](*args, **kwargs)
+            want = k["plain"](*args, **kwargs)
+            torch.cuda.synchronize()
+            if name == "radix_pass":
+                check(torch.equal(got[1], want[1]), f"radix_pass bases differ at {label}")
+                got, want = got[0], want[0]
+            worst[name] = max(worst[name], float((got - want).abs().nan_to_num(0.0).max()))
+            check(got.shape == want.shape
+                  and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"{name} differs from its plain version at {label}, "
+                  f"pass {args[2]} of a {tuple(args[0].shape)} table")
+        emit({"check": name, "at": label, "calls": len(calls[name]), "equal": True})
+    return worst
 
 
 def camera(pose, width, height, f):
@@ -320,18 +406,28 @@ def surfel_points(n, width, height):
     return xyz, colors
 
 
-def check_train_step(gpu_model, cams):
-    """One training step on the card against the same step on the CPU from
-    the same state (the CPU model's init copied to the card), at active SH
-    degree 3 with anisotropic scales so that every parameter gets gradient:
-    every parameter's gradient, read where the step hands it to Adam, and
-    the metrics."""
+def full_training_set(serve_model, cams):
+    """The full-width training set: the serving renders of `cams` (the sort
+    engine's) as ground truth, seeded by the surfel scene's points."""
+    images = [serve_model.render(cam)["color"] for cam in cams]
+    xyz, colors = surfel_points(FULL_N, FULL_W, FULL_H)
+    return training_set(cams, images, xyz, colors), xyz
+
+
+def check_train_step(gpu_model, cams, binning="sort"):
+    """One training step with `pallas_binning: binning` on the card against
+    the same step on the CPU from the same state (the CPU model's init
+    copied to the card), at active SH degree 3 with anisotropic scales so
+    that every parameter gets gradient: every parameter's gradient, read
+    where the step hands it to Adam, and the metrics. Returns the K5/K6
+    calls of the card's step (radix_calls)."""
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.models import gaussian_store as gs
     images = [gpu_model.render(cam)["color"] for cam in cams]
     xyz, colors = surfel_points(CHECK_N, CHECK_W, CHECK_H)
     ds = training_set(cams, images, xyz, colors)
-    overrides = dict(uncertainty_mode="disabled", num_sky_gaussians=CHECK_SKY)
+    overrides = dict(uncertainty_mode="disabled", num_sky_gaussians=CHECK_SKY,
+                     pallas_binning=binning)
     cpu = WildGaussians(train_dataset=ds, config_overrides=overrides, device="cpu")
     card = WildGaussians(train_dataset=ds, config_overrides=overrides)
     rng = np.random.default_rng(SEED)
@@ -345,12 +441,13 @@ def check_train_step(gpu_model, cams):
         m.aux = m.aux._replace(
             active_sh_degree=torch.tensor(3, dtype=torch.int32, device=m.device),
             filter_3D=cpu.aux.filter_3D.to(m.device))
-    grads, metrics, seconds = {}, {}, {}
+    grads, metrics, seconds, radix = {}, {}, {}, {}
     for name, m in (("cpu", cpu), ("card", card)):
         def record(_params, g, *_args, name=name, **_kwargs):
             grads[name] = {k: v.detach().to("cpu", copy=True) for k, v in g.items()}
         t0 = time.perf_counter()
-        with calls_of(gs, "adam_update", record):
+        with calls_of(gs, "adam_update", record), \
+                radix_calls(radix) if name == "card" else contextlib.nullcontext():
             metrics[name] = m.train_iteration(0, camera_id=0)
         seconds[name] = time.perf_counter() - t0
     m_cpu, m_card = metrics["cpu"], metrics["card"]
@@ -370,12 +467,13 @@ def check_train_step(gpu_model, cams):
         check(per_param[k]["share_over_tol"] <= TOL_GRAD_FRAC,
               f"train step: the gradient of {k} differs between the card and the CPU: {per_param[k]}")
     metric_err = {k: abs(m_card[k] - v) / max(abs(v), 1e-12) for k, v in m_cpu.items()}
-    emit({"check": "train step, card vs CPU", "size": [CHECK_W, CHECK_H],
+    emit({"check": "train step, card vs CPU", "binning": binning, "size": [CHECK_W, CHECK_H],
           "gaussians": int(m_cpu["num_gaussians"]), "cpu_step_s": seconds["cpu"],
           "metrics_cpu": m_cpu, "metrics_card": m_card, "metric_rel_err": metric_err,
           "gradients": per_param})
     check(all(e <= TOL_METRIC for e in metric_err.values()),
           f"train step metrics differ between the card and the CPU: {metric_err}")
+    return radix
 
 
 def phase_check(tmp, errs):
@@ -403,75 +501,159 @@ def phase_check(tmp, errs):
         torch.randn((rows, big_list.shape[0]), generator=g, device=gpu.device),
         f"{CHECK_N} Gaussians"))
     opts = {"outputs": ["depth"], "embedding": gpu.get_train_embedding(2)}
-    on_card = gpu.render(cam, options=opts)
-    on_cpu = WildGaussians(checkpoint=ckpt, device="cpu").render(cam, options=opts)
-    for key in ("color", "accumulation"):
-        d = np.abs(on_card[key] - on_cpu[key])
-        d = d.max(-1) if d.ndim == 3 else d
-        emit({"check": "render path, card vs CPU", "output": key, "max_abs_diff": float(d.max()),
-              "pixels_over_1e-3": int((d > TOL_PATH_PIXEL).sum()), "pixels": int(d.size)})
-        check((d > TOL_PATH_PIXEL).mean() <= TOL_PATH_FRAC, f"{key} on the card differs from the CPU")
-    rel = np.abs(on_card["depth"] - on_cpu["depth"]) / max(float(on_cpu["depth"].max()), 1e-6)
-    check((rel > TOL_PATH_PIXEL).mean() <= TOL_PATH_FRAC, "depth on the card differs from the CPU")
-    check_train_step(gpu, [camera(p, CHECK_W, CHECK_H, CHECK_W / 1.4) for p in poses()[:2]])
-    del gpu, pkg
+    compare_render_path(gpu, WildGaussians(checkpoint=ckpt, device="cpu"), cam, opts, "sort")
+    train_cams = [camera(p, CHECK_W, CHECK_H, CHECK_W / 1.4) for p in poses()[:2]]
+    check_train_step(gpu, train_cams)
+    # the partition engine: the render path and one training step, card vs
+    # CPU, and K5/K6 on the arguments the card's step passed them
+    set_binning(ckpt, "partition")
+    compare_render_path(WildGaussians(checkpoint=ckpt), WildGaussians(checkpoint=ckpt, device="cpu"),
+                        cam, opts, "partition")
+    radix = check_train_step(gpu, train_cams, binning="partition")
+    check(set(radix) == {"radix_pass", "radix_unpass"}, f"the partition step ran {set(radix)}")
+    for name, err in check_radix(radix, f"a partition training step at {CHECK_W}x{CHECK_H}, "
+                                        f"{CHECK_N} points + {CHECK_SKY} sky").items():
+        errs[name].append(err)
+    del gpu, pkg, radix
     torch.cuda.empty_cache()
 
 
-def phase_serve(tmp):
-    """The serving path at full width; returns each kernel's launch count
-    over the requests, and the blend inputs of pose 0 by number of passes."""
+def compare_render_path(card, cpu, cam, opts, binning):
+    """The whole render path of two models of one checkpoint, card vs CPU."""
+    on_card = card.render(cam, options=opts)
+    on_cpu = cpu.render(cam, options=opts)
+    for key in ("color", "accumulation"):
+        d = np.abs(on_card[key] - on_cpu[key])
+        d = d.max(-1) if d.ndim == 3 else d
+        emit({"check": "render path, card vs CPU", "binning": binning, "output": key,
+              "max_abs_diff": float(d.max()), "pixels_over_1e-3": int((d > TOL_PATH_PIXEL).sum()),
+              "pixels": int(d.size)})
+        check((d > TOL_PATH_PIXEL).mean() <= TOL_PATH_FRAC,
+              f"{key} on the card differs from the CPU ({binning})")
+    rel = np.abs(on_card["depth"] - on_cpu["depth"]) / max(float(on_cpu["depth"].max()), 1e-6)
+    check((rel > TOL_PATH_PIXEL).mean() <= TOL_PATH_FRAC,
+          f"depth on the card differs from the CPU ({binning})")
+
+
+def load_checkpoint(tmp):
+    """The full-width surfel checkpoint, written and loaded through
+    WildGaussians; the seconds each took."""
     from wildgaussians_torch import WildGaussians
     t0 = time.perf_counter()
     ckpt = make_checkpoint(tmp, "full", FULL_N, FULL_W, FULL_H)
     t1 = time.perf_counter()
     model = WildGaussians(checkpoint=ckpt)
     torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    cams = [camera(p, FULL_W, FULL_H, FULL_W / 1.4) for p in poses()]
-    emb = model.get_train_embedding(5)
-    requests = [(0, None), (1, None), (2, None), (3, None), (0, {"outputs": ["depth"]}),
-                (1, {"embedding": emb}), (2, None), (3, None)]
-    ks = [k for k in kernels() if "serve" in k["paths"]]
-    torch.cuda.reset_peak_memory_stats()
+    return ckpt, model, {"checkpoint_write_s": t1 - t0,
+                         "checkpoint_load_s": time.perf_counter() - t1}
+
+
+def launches_per_unit(model, path):
+    """Each kernel's launches per request or step of `path`: one, and for
+    K5 and K6 one per radix pass of the partition engine."""
+    per = {k["name"]: 1 for k in kernels() if path in k["paths"]}
+    if path.startswith("partition"):
+        sizes = engine_sizes(model)
+        for name in ("radix_pass", "radix_unpass"):
+            if name in per:
+                per[name] = sizes.L1 + sizes.L_A + sizes.L2
+    return per
+
+
+def phase_serve(model, cams, requests, path, errs, reference=None, extra=None):
+    """The serving path `path` at full width: `requests` ((pose, options)
+    pairs, the first a warm-up) of `model`, each timed and its output
+    checked, with each kernel's launches per request. K1 (and K5 on the
+    partition path) is held against its plain version on the arguments the
+    first request, and the first depth request, passed it (outside the
+    timed requests), and timed on the first's. Then per-pose counters,
+    where a request's time goes (phase_profile), and with a `reference`
+    model pose 0's agreement with its render (printed only: the engines'
+    entry order may differ where 24-bit depth keys tie). Returns each
+    kernel's launches over the requests and K1's timing."""
+    ks = [k for k in kernels() if path in k["paths"]]
+    per_request = launches_per_unit(model, path)
+    hold_at = {0, next((i for i, (_p, o) in enumerate(requests) if o and "outputs" in o), 0)}
     for k in ks:
         k["wrapper"].launches = 0
-    request_ms, acc_means = [], []
-    for pose_i, opts in requests:
+    request_ms, acc_means, per_request_launches, timing, peak = [], [], [], None, 0
+    for i, (pose_i, opts) in enumerate(requests):
+        captured, radix = {}, {}
+        before = {k["name"]: k["wrapper"].launches for k in ks}
         torch.cuda.synchronize()
         r0 = time.perf_counter()
-        out = model.render(cams[pose_i], options=opts)
+        with kernel_calls(captured, radix) if i in hold_at else contextlib.nullcontext():
+            out = model.render(cams[pose_i], options=opts)
         torch.cuda.synchronize()
         request_ms.append((time.perf_counter() - r0) * 1e3)
+        per_request_launches.append({k["name"]: k["wrapper"].launches - before[k["name"]]
+                                     for k in ks})
         check(out["color"].shape == (FULL_H, FULL_W, 3), f"color shape {out['color'].shape}")
         check(all(np.isfinite(v).all() for v in out.values()), "non-finite render output")
         acc_means.append(float(out["accumulation"].mean()))
         check(acc_means[-1] > 0.5, f"mean accumulation {acc_means[-1]} <= 0.5")
         check((opts is not None and "outputs" in opts) == ("depth" in out), "depth output")
-    launches = {k["name"]: k["wrapper"].launches for k in ks}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name, n in launches.items():   # each kernel of the path runs once per request
-        check(n == len(requests), f"{name} launched {n} times for {len(requests)} requests")
+        if i > 0:     # the peak over the requests after the warm-up, not over the holds
+            peak = max(peak, torch.cuda.max_memory_allocated())
+        if i in hold_at:
+            fwd = captured["blend_fwd"]
+            label = (f"{path} request {i} at {FULL_W}x{FULL_H}, {FULL_N} Gaussians, "
+                     f"pose {pose_i}, {fwd[4]} passes")
+            check(set(radix) == {n for n in per_request if n == "radix_pass"},
+                  f"{label} ran {set(radix)}")
+            errs["blend_fwd"].append(check_kernel(kernel_by_name("blend_fwd"), fwd, label))
+            for name, err in check_radix(radix, label).items():
+                errs[name].append(err)
+            if i == 0:
+                timing = time_k1(fwd, label)
+            del captured, radix, fwd
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    # the requests' own launches (not those of the holds)
+    launches = {k["name"]: sum(per[k["name"]] for per in per_request_launches) for k in ks}
+    for i, per in enumerate(per_request_launches):
+        check(per == per_request, f"{path} request {i} launched {per}, not {per_request}")
 
-    # per pose: the counters of the render, and the blend kernel's inputs
-    per_pose, captures = [], {}
+    per_pose = []
     for i, cam in enumerate(cams):
         pkg = model.render_pkg(cam)
         per_pose.append({"pose": i, "overflow": int(pkg.overflow),
                          "num_rendered": int(pkg.num_rendered),
-                         "binned_entries": int(pkg.blend["tile_starts"][-1]),
+                         "table": list(pkg.blend["table"].shape),
+                         "binned_entries": int(pkg.blend["tile_counts"].sum()),
                          "walked_entries": int(pkg.blend["walked"].sum())})
-        check(int(pkg.overflow) == 0, f"overflow {int(pkg.overflow)} at pose {i}")
-        if i == 0:
-            captures[2] = pkg
-    captures[3] = model.render_pkg(cams[0], options={"outputs": ["depth"]})
-    emit({"phase": "serve", "gaussians": FULL_N, "size": [FULL_W, FULL_H],
-          "checkpoint_write_s": t1 - t0, "checkpoint_load_s": t2 - t1,
-          "request_ms": request_ms, "warmup_ms": request_ms[0],
-          "steady_mean_ms": float(np.mean(request_ms[1:])),
-          "mean_accumulation": acc_means, "per_pose": per_pose, "peak_mem_gib": peak_gib})
-    phase_profile(model, cams[0])
-    return launches, captures, model, cams
+        check(int(pkg.overflow) == 0, f"overflow {int(pkg.overflow)} at pose {i} ({path})")
+    del pkg
+    if reference is not None:
+        d = np.abs(model.render(cams[0])["color"] - reference.render(cams[0])["color"])
+        extra = dict(extra or {}, vs_reference_pose0={
+            "max_abs_diff": float(d.max()), "pixels_over_1e-3": int((d.max(-1) > 1e-3).sum()),
+            "psnr_db": float(-10 * np.log10(max(np.mean(d ** 2), 1e-20)))})
+    emit({"phase": path, "binning": model.config.pallas_binning, "gaussians": FULL_N,
+          "size": [FULL_W, FULL_H], "request_ms": request_ms, "warmup_ms": request_ms[0],
+          "steady_mean_ms": float(np.mean(request_ms[1:])), "launches_per_request": per_request,
+          "mean_accumulation": acc_means, "per_pose": per_pose,
+          "peak_mem_gib_after_warmup": peak / 2 ** 30, **(extra or {})})
+    phase_profile(model, cams[0], path)
+    return launches, timing
+
+
+def time_k1(inputs, label):
+    """K1 timed on the arguments one request passed it, beside its plain
+    version and its bound."""
+    from wildgaussians_torch.ops import blend
+    k = kernel_by_name("blend_fwd")
+    n_passes = inputs[4]
+    ms = time_cuda_ms(lambda: k["wrapper"](*inputs), iters=20)
+    plain_ms = time_cuda_ms(lambda: k["plain"](*inputs), iters=3, warmup=1)
+    walked = k["wrapper"](*inputs)[2]
+    pairs = blend.blend_pair_counts(*inputs[:4])
+    bound_ms, bound_by = blend_bound_ms(inputs[0], inputs[2], walked, n_passes, pairs)
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    emit({"phase": "timing", "kernel": k["name"], "at": label, "passes": n_passes,
+          "pairs": pairs, "walked_pairs": int(walked.sum()) * 256,
+          "binned_entries": int(inputs[2].sum()), "walked_entries": int(walked.sum()), **out})
+    return out
 
 
 def _union_us(intervals):
@@ -489,7 +671,27 @@ def _union_us(intervals):
     return total
 
 
-def phase_profile(model, cam):
+def device_window(prof, traced_us, n, unit):
+    """What one torch.profiler window over n `unit`s (request or step) shows,
+    per unit: the traced time, the device's busy time (the union of its
+    kernel and copy intervals), its idle share, its launches and the device
+    ops that take most of it."""
+    cuda = torch.autograd.DeviceType.CUDA
+    device_events = [e for e in prof.events() if e.device_type == cuda]
+    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in device_events])
+    by_name = {}
+    for e in device_events:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {f"traced_{unit}_ms": traced_us / 1e3 / n, "device_busy_ms": busy_us / 1e3 / n,
+            "device_idle_share": 1.0 - busy_us / traced_us,
+            f"device_launches_per_{unit}": len(device_events) / n,
+            "top_device_ops": [{"name": name[:90], f"ms_per_{unit}": us / 1e3 / n,
+                                f"per_{unit}": count / n} for name, (us, count) in top]}
+
+
+def phase_profile(model, cam, path):
     """Where a request's time goes (pose 0, raw + toned passes): the stage
     spans over PROFILE_REQUESTS requests, then one torch.profiler window
     over as many, whose device busy time (the union of its kernel and copy
@@ -511,44 +713,38 @@ def phase_profile(model, cam):
             model.render(cam)
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    device_events = [e for e in prof.events() if e.device_type == cuda]
-    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in device_events])
-    by_name = {}
-    for e in device_events:
-        us, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "profile", "requests": n, "request_ms_with_spans": spans_wall_ms,
+    window = device_window(prof, traced_us, n, "request")
+    emit({"phase": "profile", "path": path, "requests": n,
+          "request_ms_with_spans": spans_wall_ms,
           "stage_device_ms": {name: ms / n for name, (ms, _c) in stages.items()},
-          "traced_request_ms": traced_us / 1e3 / n, "device_busy_ms": busy_us / 1e3 / n,
-          "device_idle_share": 1.0 - busy_us / traced_us,
           # the traced window is lengthened by the profiler itself; beside it,
           # the traced busy time over the request time with spans only
-          "busy_over_untraced_request": busy_us / 1e3 / n / spans_wall_ms,
-          "device_launches_per_request": len(device_events) / n,
-          "top_device_ops": [{"name": name[:90], "ms_per_request": us / 1e3 / n,
-                              "per_request": count / n} for name, (us, count) in top]})
+          "busy_over_untraced_request": window["device_busy_ms"] / spans_wall_ms, **window})
 
 
-def phase_train(serve_model, cams):
-    """The training path at full width (see the module docstring); returns
-    each kernel's launch count over the 8 steps, the arguments each kernel
-    was given in the first step (blend_calls) and a label of that step."""
+def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
+    """The training path `path` at full width ("train": the sort engine,
+    "partition_train": `pallas_binning: partition`; see the module
+    docstring): n_steps steps, the first a warm-up whose kernel arguments
+    are recorded and held right after it (hold_step, outside the timed
+    steps); spans on the steps between, a profiler window on the last
+    profile_steps. Returns each kernel's launches over the steps and the
+    timings of hold_step."""
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.models import gaussian_store as gs
     from wildgaussians_torch.spans import SpanTimer
-    ks = [k for k in kernels() if "train" in k["paths"]]
-    images = [serve_model.render(cam)["color"] for cam in cams]
-    xyz, colors = surfel_points(FULL_N, FULL_W, FULL_H)
-    ds = training_set(cams, images, xyz, colors)
-    del images
+    binning = "partition" if path == "partition_train" else "sort"
+    ks = [k for k in kernels() if path in k["paths"]]
+    ds, xyz = full_training_set(serve_model, cams)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = WildGaussians(train_dataset=ds, config_overrides=dict(uncertainty_mode="disabled"))
+    model = WildGaussians(train_dataset=ds, config_overrides=dict(uncertainty_mode="disabled",
+                                                                  pallas_binning=binning))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    per_step = launches_per_unit(model, path)
+    stages_of = partition_stages(engine_sizes(model)) if binning == "partition" else None
+    n_plain = n_steps - profile_steps
     # per parameter over the steps before the profiled ones, taken where
     # each step hands its gradients to Adam and read after the step, outside
     # its timing: every gradient finite, and its largest |g|
@@ -564,46 +760,52 @@ def phase_train(serve_model, cams):
                 g = g[alive]   # a dead slot's gradient may be NaN (see check_train_step)
             m = torch.where(torch.isfinite(g), g.abs(), torch.inf).max()
             grad_max[k] = m if k not in grad_max else torch.maximum(grad_max[k], m)
-    captured = {}
     for k in ks:
         k["wrapper"].launches = 0
-    steps, per_step_launches = [], []
-    timer = SpanTimer()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    prof = torch.profiler.profile(activities=acts)
-    n_plain = TRAIN_STEPS - TRAIN_PROFILE_STEPS
-    traced_us = 0.0
-    observing = calls_of(gs, "adam_update", observe)
-    observing.__enter__()
-    for step in range(TRAIN_STEPS):
-        if step == 1:
-            timer.__enter__()
-        if step == n_plain:
-            timer.__exit__(None, None, None)
-            observing.__exit__(None, None, None)
-            prof.__enter__()
+    steps, per_step_launches, timings = [], [], None
+
+    def run(step):
+        """One timed step; the warm-up's kernel arguments are recorded and
+        held after it."""
+        nonlocal timings
+        captured, radix = {}, {}
         before = {k["name"]: k["wrapper"].launches for k in ks}
         torch.cuda.synchronize()
         r0 = time.perf_counter()
-        # the warm-up step records each kernel's arguments
-        with blend_calls(captured) if step == 0 else contextlib.nullcontext():
+        with kernel_calls(captured, radix) if step == 0 else contextlib.nullcontext():
             metrics = model.train_iteration(step)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - r0) * 1e3
-        if step >= n_plain:
-            traced_us += ms * 1e3
-        else:
-            fold()
-        per_step_launches.append({k["name"]: k["wrapper"].launches - before[k["name"]] for k in ks})
+        per_step_launches.append({k["name"]: k["wrapper"].launches - before[k["name"]]
+                                  for k in ks})
         steps.append({"step": step, "ms": ms, **{key: metrics[key] for key in (
             "loss", "psnr", "num_rendered", "overflow", "max_tiles", "num_gaussians")}})
-        check(np.isfinite(metrics["loss"]), f"loss at step {step} is {metrics['loss']}")
-    prof.__exit__(None, None, None)
-    launches = {k["name"]: k["wrapper"].launches for k in ks}
+        check(np.isfinite(metrics["loss"]), f"{path}: loss at step {step} is {metrics['loss']}")
+        if step < n_plain:
+            fold()
+        if step == 0:
+            label = (f"{path} step 0 at {FULL_W}x{FULL_H}, {metrics['num_gaussians']} "
+                     f"Gaussians, {captured['blend_fwd'][4]} passes")
+            timings = hold_step(captured, radix, stages_of, label, errs)
+            del captured, radix
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        return ms
+
+    with calls_of(gs, "adam_update", observe):
+        run(0)
+        with SpanTimer() as timer:
+            for step in range(1, n_plain):
+                run(step)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        traced_us = sum(run(step) for step in range(n_plain, n_steps)) * 1e3
+    # the steps' own launches (not those of hold_step's checks)
+    launches = {k["name"]: sum(per[k["name"]] for per in per_step_launches) for k in ks}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stages = timer.ms()
     for i, per in enumerate(per_step_launches):
-        check(all(v == 1 for v in per.values()), f"step {i} launched {per} (each kernel once)")
+        check(per == per_step, f"{path} step {i} launched {per}, not {per_step}")
     grad_max = {k: float(v) for k, v in grad_max.items()}
     for k, v in grad_max.items():
         check(np.isfinite(v), f"a gradient of {k} is not finite")
@@ -613,31 +815,18 @@ def phase_train(serve_model, cams):
             check(v == 0.0, f"features_rest has gradient {v} at SH degree 0")
         else:
             check(v > 0.0, f"{k} got no gradient in {n_plain} steps")
-    cuda = torch.autograd.DeviceType.CUDA
-    device_events = [e for e in prof.events() if e.device_type == cuda]
-    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in device_events])
-    by_name = {}
-    for e in device_events:
-        us, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     n_span = n_plain - 1
-    np_ = TRAIN_PROFILE_STEPS
-    emit({"phase": "train", "points": int(len(xyz)), "capacity": int(model.params["xyz"].shape[0]),
-          "size": [FULL_W, FULL_H], "setup_s": setup_s, "steps": steps,
-          "warmup_ms": steps[0]["ms"],
+    emit({"phase": path, "binning": binning, "points": int(len(xyz)),
+          "capacity": int(model.params["xyz"].shape[0]), "size": [FULL_W, FULL_H],
+          "setup_s": setup_s, "steps": steps, "warmup_ms": steps[0]["ms"],
           "steady_mean_ms": float(np.mean([st["ms"] for st in steps[1:n_plain]])),
-          "peak_mem_gib": peak_gib, "grad_max_abs": grad_max,
+          "launches_per_step": per_step, "peak_mem_gib_after_warmup": peak_gib,
+          "grad_max_abs": grad_max,
+          **({"engine_sizes": engine_sizes(model)._asdict()} if stages_of else {}),
           "stage_device_ms": {name: ms / n_span for name, (ms, _c) in stages.items()},
           "stage_spans_per_step": {name: c / n_span for name, (_ms, c) in stages.items()},
-          "traced_step_ms": traced_us / 1e3 / np_, "device_busy_ms": busy_us / 1e3 / np_,
-          "device_idle_share": 1.0 - busy_us / traced_us,
-          "device_launches_per_step": len(device_events) / np_,
-          "top_device_ops": [{"name": name[:90], "ms_per_step": us / 1e3 / np_,
-                              "per_step": count / np_} for name, (us, count) in top]})
-    label = (f"training step 0 at {FULL_W}x{FULL_H}, {steps[0]['num_gaussians']} Gaussians, "
-             f"{captured['blend_fwd'][4]} passes")
-    return launches, captured, label
+          **device_window(prof, traced_us, profile_steps, "step")})
+    return launches, timings
 
 
 def k2_bound_ms(inputs, walked, pairs):
@@ -665,11 +854,13 @@ def k3_bound_ms(sums, big_list, bigs):
     return bytes_moved / PEAK_BYTES * 1e3, "bytes"
 
 
-def time_backward_kernels(captured, label, errs):
-    """K1, K2 and K3 on the arguments a training step passed them
-    (`captured`, from blend_calls): each checked against its plain version;
-    K2 and K3 timed beside their plain versions, with their bounds, and K3
-    also beside `index_add_` on its valid slots."""
+def hold_step(captured, radix, stages, label, errs):
+    """K1, K2 and K3, and on the partition path K5 and K6, on the arguments
+    a training step passed them (`captured` from blend_calls, `radix` from
+    radix_calls): each checked against its plain version; K2 and K3 timed
+    beside their plain versions, with their bounds, and K3 also beside
+    `index_add_` on its valid slots; K5 and K6 timed per call (time_radix,
+    `stages` naming each call's stage)."""
     from wildgaussians_torch.ops import blend
     fwd, k2 = captured["blend_fwd"], captured["blend_bwd"]
     sums, big_list, bigs = captured["tier2_merge"]
@@ -697,7 +888,83 @@ def time_backward_kernels(captured, label, errs):
     emit({"phase": "timing", "kernel": "tier2_merge", "at": label, "rows": int(sums.shape[0]),
           "n": int(sums.shape[1]), "m_cap": int(big_list.shape[0]), "valid": int(valid.sum()),
           **out["tier2_merge"]})
+    if stages is not None:
+        check(set(radix) == {"radix_pass", "radix_unpass"}, f"{label} ran {set(radix)}")
+        for name, err in check_radix(radix, label).items():
+            errs[name].append(err)
+        out.update(time_radix(radix, stages, label))
     return out
+
+
+def radix_bounds(name, args, kwargs):
+    """Least time of one K5 or K6 call on these arguments: bytes. K5 reads
+    the table's rows (its key row from `keys`) once and writes the output
+    once; K6 reads the key row, the gradient columns of the entries that
+    are not holes, and writes its output once."""
+    if name == "radix_pass":
+        table, _keys = args[:2]
+        rows, R = table.shape
+        bytes_moved = rows * R * 4 + rows * kwargs["R_out"] * 4
+    else:
+        gin, keys = args[:2]
+        real = int((keys < float(kwargs["sentinel"])).sum())
+        bytes_moved = keys.shape[0] * 4 + gin.shape[0] * (real + keys.shape[0]) * 4
+    return bytes_moved / PEAK_BYTES * 1e3
+
+
+def radix_library(name, args, kwargs):
+    """One PyTorch call for the same function, on the same arguments: for K5
+    a stable sort of the digits and an index_select of the rows (no gaps or
+    sentinels); for K6 an index_select by the destinations, computed first
+    and outside the call."""
+    from wildgaussians_torch.ops import partition
+    B = kwargs["B"]
+    if name == "radix_pass":
+        table, keys, p = args[:3]
+        return lambda: table.index_select(
+            1, torch.sort(partition.digits(keys, p, B), stable=True).indices)
+    gin, keys, p, bases = args[:4]
+    dest = partition._destinations(keys, p, bases, B)
+    return lambda: gin.index_select(1, dest)
+
+
+def time_radix(radix, stages, label):
+    """K5 and K6 on every call a training step made (`radix`, radix_calls):
+    ms per call beside its bound, its plain version and the library call,
+    and the sums over the step."""
+    out = {}
+    for name in ("radix_pass", "radix_unpass"):
+        k = kernel_by_name(name)
+        rows = []
+        for i, (args, kwargs) in enumerate(radix[name]):
+            rows.append(dict(
+                stage=stages[name][i], p=args[2], shape=list(args[0].shape),
+                ms=time_cuda_ms(lambda: k["wrapper"](*args, **kwargs), iters=5),
+                plain_ms=time_cuda_ms(lambda: k["plain"](*args, **kwargs), iters=1, warmup=1),
+                library_ms=time_cuda_ms(radix_library(name, args, kwargs), iters=3, warmup=1),
+                bound_ms=radix_bounds(name, args, kwargs)))
+        sums = {key: float(sum(r[key] for r in rows))
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        out[name] = dict(**sums, bound_by="bytes", per="training step",
+                         launches_per_step=len(rows))
+        emit({"phase": "timing", "kernel": name, "at": label, "per_step": sums, "calls": rows})
+    return out
+
+
+def partition_stages(sizes):
+    """The stage of each K5 call of a step, in order, and of each K6 call."""
+    k5 = (["presort"] * sizes.L1 + ["rank"] * sizes.L_A + ["tile"] * sizes.L2)
+    k6 = (["tile"] * sizes.L2 + ["rank"] * sizes.L_A + ["presort"] * sizes.L1)
+    return {"radix_pass": k5, "radix_unpass": k6}
+
+
+def engine_sizes(model):
+    from wildgaussians_torch.ops.partition_engine import engine_d_small, partition_engine_sizes
+    from wildgaussians_torch.ops.rasterize_tiled import make_grid
+    c = model.config
+    return partition_engine_sizes(make_grid(FULL_W, FULL_H, 16), int(model.params["xyz"].shape[0]),
+                                  c.max_tiles_per_gaussian, engine_d_small(c.pallas_d_small),
+                                  c.pallas_big_fraction)
 
 
 def main():
@@ -706,8 +973,8 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from wildgaussians_torch.ops import _build, blend
-    from wildgaussians_torch.ops.rasterize_tiled import make_grid
+    from wildgaussians_torch import WildGaussians
+    from wildgaussians_torch.ops import _build
     # f32 matmuls and convolutions in full f32 (the plain versions, the
     # appearance MLP, SSIM)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -729,41 +996,43 @@ def main():
     emit({"phase": "build", "wall_s": time.perf_counter() - t0})
 
     errs = {k["name"]: [] for k in ks}
+    launches, timings = {}, {}
     with tempfile.TemporaryDirectory(prefix="wg_chip_smoke_") as tmp:
         phase_check(tmp, errs)
-        serve_launches, captures, serve_model, cams = phase_serve(tmp)
+        ckpt, serve_model, load_s = load_checkpoint(tmp)
+        cams = [camera(p, FULL_W, FULL_H, FULL_W / 1.4) for p in poses()]
+        emb = serve_model.get_train_embedding(5)
+        requests = [(0, None), (1, None), (2, None), (3, None), (0, {"outputs": ["depth"]}),
+                    (1, {"embedding": emb}), (2, None), (3, None)]
+        launches["serve"], k1 = phase_serve(serve_model, cams, requests, "serve", errs,
+                                            extra=load_s)
+        timings["blend_fwd"] = k1
+        torch.cuda.empty_cache()
+        launches["train"], k2k3 = phase_train(serve_model, cams, "train", TRAIN_STEPS,
+                                              TRAIN_PROFILE_STEPS, errs)
+        timings.update(k2k3)
+        torch.cuda.empty_cache()
 
-    grid = make_grid(FULL_W, FULL_H, 16)
-    k = kernel_by_name("blend_fwd")
-    for n_passes, pkg in sorted(captures.items()):
-        errs[k["name"]].append(check_kernel(k, blend_inputs(pkg, n_passes, grid),
-                                            f"{FULL_W}x{FULL_H}, {FULL_N} Gaussians, pose 0, "
-                                            f"{n_passes} passes"))
-    # timed at the main path's common shape: raw + toned passes
-    inputs = blend_inputs(captures[2], 2, grid)
-    ms = time_cuda_ms(lambda: k["wrapper"](*inputs), iters=20)
-    plain_ms = time_cuda_ms(lambda: k["plain"](*inputs), iters=3, warmup=1)
-    walked = k["wrapper"](*inputs)[2]
-    pairs = blend.blend_pair_counts(*inputs[:4])
-    bound_ms, bound_by = blend_bound_ms(inputs[0], inputs[2], walked, 2, pairs)
-    emit({"phase": "timing", "kernel": k["name"], "passes": 2, "pairs": pairs,
-          "walked_pairs": int(walked.sum()) * 256, "binned_entries": int(inputs[1][-1]),
-          "walked_entries": int(walked.sum()), "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by})
-    timings = {k["name"]: dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=None)}
-    del captures, inputs
-    torch.cuda.empty_cache()
-
-    train_launches, captured, label = phase_train(serve_model, cams)
-    del serve_model
-    torch.cuda.empty_cache()
-    timings.update(time_backward_kernels(captured, label, errs))
+        # the partition engine at full width, after the sort engine's paths:
+        # the same checkpoint, its config now naming the engine
+        part_model = WildGaussians(checkpoint=set_binning(ckpt, "partition"))
+        check(part_model.config.pallas_binning == "partition", "the checkpoint's binning")
+        launches["partition_serve"], _k1 = phase_serve(
+            part_model, cams, [(i % len(cams), None) for i in range(PARTITION_REQUESTS)],
+            "partition_serve", errs, reference=serve_model,
+            extra={"engine_sizes": engine_sizes(part_model)._asdict()})
+        del part_model
+        torch.cuda.empty_cache()
+        launches["partition_train"], part = phase_train(serve_model, cams, "partition_train",
+                                                        PARTITION_STEPS, 1, errs)
+        timings.update({name: part[name] for name in ("radix_pass", "radix_unpass")})
+        del serve_model
+        torch.cuda.empty_cache()
 
     entries = []
     for k in ks:
         name = k["name"]
-        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
+        by_path = {path: per.get(name, 0) for path, per in launches.items()}
         for path in k["paths"]:
             check(by_path[path] > 0, f"{name} was not launched on the {path} path")
         entry = {"name": name, "route": k["route"], "source": k["source"],

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card: K1 (the blend
 forward), K2 (its backward, per gradient row within 2e-3 of the row's
-largest value: the kernel sums each entry over 256 pixels in another order)
-and K3 (the tier-2 merge, exactly). This file
+largest value: the kernel sums each entry over 256 pixels in another order),
+K3 (the tier-2 merge, exactly), and K5 and K6 (a radix pass and its inverse:
+they only move values, so exactly, pass by pass). This file
 imports neither JAX nor the test helpers, so that it also runs on a machine
 with a card and no JAX:
 
@@ -16,6 +17,7 @@ import torch
 
 from wildgaussians_torch.cameras import make_camera_params_torch
 from wildgaussians_torch.ops import blend as tblend
+from wildgaussians_torch.ops import partition as tpart
 from wildgaussians_torch.ops.gaussians import compute_cov3d, preprocess
 from wildgaussians_torch.ops.rasterize_tiled import make_grid
 from wildgaussians_torch.ops.sort_engine import _build_sorted_table
@@ -73,6 +75,47 @@ def _check_backward(st, grid, n_passes, dev):
     assert torch.equal(got, tblend.tier2_merge_plain(sums.clone(), st.big_list, bigs))
 
 
+def _check_radix(dev):
+    """K5 and K6 against their plain versions, pass by pass, on tables with
+    invalid keys and a pure-sentinel stretch: a small base, the engine's
+    tile partition (key row 1, a tail) and its depth presort."""
+    rng = np.random.default_rng(3)
+    for nb, B, E, R, rows, key_row, tail in ((37, 4, 32, 5_024, 8, 0, 0),
+                                             (3_601, 16, 256, 300_032, 14, 1, 512),
+                                             ((1 << 24) - 1, 16, 256, 70_144, 18, 0, 0)):
+        keys = rng.integers(0, nb, R).astype(np.float32)
+        keys[rng.random(R) < 0.2] = nb + 2
+        keys[R // 3:R // 3 + 3 * E] = nb + 5
+        table = torch.tensor(rng.uniform(-5, 5, (rows, R)).astype(np.float32), device=dev)
+        table[key_row] = torch.tensor(keys, device=dev)
+        L = tpart.num_passes(nb, B)
+        sentinel = B ** L - 1
+        cur = table
+        k = torch.where(cur[key_row] >= nb, float(sentinel), cur[key_row])
+        for p in range(L):
+            r_out = cur.shape[1] + B * E + (tail if p == L - 1 else 0)
+            kw = dict(B=B, E=E, key_row=key_row, sentinel=sentinel, R_out=r_out)
+            before = (tpart.radix_pass.launches, tpart.radix_unpass.launches)
+            out, bases = tpart.radix_pass(cur, k, p, **kw)
+            want, want_bases = tpart.radix_pass_plain(cur, k, p, **kw)
+            gin = torch.randn((13, r_out), device=dev)
+            back = tpart.radix_unpass(gin, k, p, bases, B=B, E=E, sentinel=sentinel)
+            torch.cuda.synchronize()
+            assert (tpart.radix_pass.launches, tpart.radix_unpass.launches) == \
+                (before[0] + 1, before[1] + 1)
+            assert torch.equal(bases, want_bases) and torch.equal(out, want), (nb, p)
+            assert torch.equal(back, tpart.radix_unpass_plain(gin, k, p, bases, B=B, E=E,
+                                                              sentinel=sentinel)), (nb, p)
+            cur, k = out, out[key_row].clone()
+        # the whole partition on the card and its round trip
+        out, meta = tpart.radix_partition(table, nb, B=B, E=E, key_row=key_row, tail_pad=tail)
+        starts, counts = tpart.bucket_ranges(meta)
+        assert int(counts.sum()) == int((table[key_row] < nb).sum())
+        back = tpart.radix_unpartition(out, meta)
+        valid = table[key_row] < nb
+        assert torch.equal(back[:, valid], table[:, valid])
+
+
 @pytest.mark.gpu
 def test_blend_kernel_matches_plain_on_card():
     dev = _card()
@@ -91,3 +134,4 @@ def test_blend_kernel_matches_plain_on_card():
         assert torch.all(kw <= st.tile_counts) and int((kw != pw).sum()) <= 2
         assert int((kw < st.tile_counts).sum()) > 0    # some tiles exit early
         _check_backward(st, grid, n_passes, dev)
+    _check_radix(dev)

@@ -3,8 +3,9 @@
 Counterpart of `render_internal` in `wildgaussians_tpu/models/renderer.py`:
 builds the camera on the device, evaluates SH colors, optionally tones them
 through the appearance MLP, and blends up to three color passes (raw /
-toned / depth) over one shared preprocess and sort (the JAX package's
-pallas sort engine with pack16 off). Differentiable: with grad enabled the
+toned / depth) over one shared preprocess and binning (the JAX package's
+pallas backend with pack16 off: the sort engine, or the partition engine
+with `pallas_binning: partition`). Differentiable: with grad enabled the
 blend runs its backward kernels, and the two zero hooks of training receive
 the gradients of the densification statistics.
 """
@@ -16,6 +17,7 @@ from ..cameras import make_camera_params_torch
 from ..config import Config
 from ..ops.blend import rasterize_multi
 from ..ops.gaussians import compute_cov3d, preprocess
+from ..ops.partition_engine import engine_d_small
 from ..ops.rasterize import overflow_count
 from ..ops.rasterize_tiled import make_grid
 from ..ops.sh import eval_sh_switch
@@ -120,13 +122,15 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
     else:
         ndc_scale = (0.5 * width, 0.5 * height)
     d_small = config.pallas_d_small
+    if config.pallas_binning == "partition":
+        d_small = engine_d_small(d_small)   # the engine's floor, for the overflow count too
     big_fraction = config.pallas_big_fraction
     outs, blend_aux = rasterize_multi(
         pre.mean2d, pre.conic, pre.opacity, [c for _tag, c in passes],
         pre.depth, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.valid, bg,
         grid=grid, max_tiles_per_gaussian=max_tiles_per_gaussian,
-        d_small=d_small, big_fraction=big_fraction, absgrad_hook=absgrad_hook,
-        ndc_scale=ndc_scale)
+        d_small=d_small, big_fraction=big_fraction, binning=config.pallas_binning,
+        absgrad_hook=absgrad_hook, ndc_scale=ndc_scale)
     results = dict(zip([tag for tag, _c in passes], outs))
 
     raw_img = results["raw"][0] if "raw" in results else None
@@ -139,8 +143,10 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
              if "depth" in results else None)
 
     num_rendered = torch.sum(torch.clamp_max(pre.tiles_touched, max_tiles_per_gaussian))
-    overflow = overflow_count(pre.tiles_touched, blend_aux["vis_count"], max_tiles_per_gaussian,
-                              d_small=d_small, big_fraction=big_fraction)
+    overflow = overflow_count(pre.tiles_touched, blend_aux.get("vis_count"),
+                              max_tiles_per_gaussian, d_small=d_small,
+                              big_fraction=big_fraction, binning=config.pallas_binning,
+                              valid=pre.valid)
     return RenderPkg(render=rendered, raw_render=raw_img,
                      accumulation=accumulation, radii=pre.radius,
                      depth=depth, num_rendered=num_rendered, overflow=overflow,

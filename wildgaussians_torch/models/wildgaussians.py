@@ -27,6 +27,7 @@ from ..config import Config, config_from_yaml_str, config_to_yaml, load_config_y
 from ..device import resolve_device
 from ..io.convert import (params_from_numpy, state_to_numpy, train_state_from_numpy,
                           trainable_tensors)
+from ..ops.blend import check_binning
 from ..ops.knn import mean_knn_dist2
 from ..ops.ssim import ssim
 from ..spans import span
@@ -55,6 +56,21 @@ def _pad_to(img: np.ndarray, h: int, w: int) -> np.ndarray:
 def scale_grads(values: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The forward value unchanged, the gradient scaled by `scale`."""
     return values * scale + values.detach() * (1 - scale)
+
+
+def _check_supported(config: Config):
+    """Raise for a configuration that asks for a path the port does not
+    have, rather than run another one in its place."""
+    if config.saturation_culling:
+        raise NotImplementedError(
+            "saturation_culling: the saturation-aware binning cull is not ported yet "
+            "(ROADMAP.md, Queue 1 item 12); set saturation_culling: false")
+    if config.rasterizer_backend not in ("auto", "pallas"):
+        raise NotImplementedError(
+            f"rasterizer_backend {config.rasterizer_backend!r}: the port has the pallas "
+            "backend's engines only (pallas_binning: sort or partition); set "
+            "rasterizer_backend: pallas or auto")
+    check_binning(config.pallas_binning)
 
 
 class WildGaussians:
@@ -93,6 +109,7 @@ class WildGaussians:
             config_file = config_overrides.pop("config", "default.yml")
             self.config = merge_config(load_config_yaml(os.path.join(_CONFIG_DIR, config_file)),
                                        config_overrides)
+        _check_supported(self.config)
         if self.config.appearance_model_2D != "disabled":
             raise NotImplementedError("2D appearance models are not supported")
         if self.config.use_background_model:

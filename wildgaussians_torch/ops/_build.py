@@ -3,9 +3,10 @@ ctypes.
 
 Each source exposes a plain C interface, so it compiles in seconds without
 PyTorch's headers. A library is built at its first use into `_build/` beside
-`csrc/` (listed in .gitignore), named by a hash of its source and flags, and
-reused while neither changes. Nothing here runs at import: the CPU tests
-import every module on machines without nvcc.
+`csrc/` (listed in .gitignore), named by a hash of its source, the headers
+of `csrc/` and the flags, and reused while none of them changes. Nothing
+here runs at import: the CPU tests import every module on machines without
+nvcc.
 """
 import ctypes
 import hashlib
@@ -43,8 +44,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the source, every header of csrc/ it may include, and the flags
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

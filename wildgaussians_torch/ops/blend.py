@@ -1,5 +1,5 @@
-"""The fused multi-pass tile blend, its backward, and the sort-engine
-rasterizer.
+"""The fused multi-pass tile blend, its backward, and the rasterizer over
+the sort engine or the partition engine (ops/partition_engine.py).
 
 Counterpart of `_make_pallas_blend_vjp` and `rasterize_pallas_multi` in
 `wildgaussians_tpu/ops/rasterize_pallas.py` (single chip, sort engine, exact
@@ -477,30 +477,55 @@ class _DifferentiableBlend(torch.autograd.Function):
                 None, None, None, None, None, None, None, None, None, None, None)
 
 
+def check_binning(binning: str):
+    """Raise unless `binning` (the config's `pallas_binning`) names an
+    engine the port has."""
+    if binning == "gather":
+        raise NotImplementedError(
+            "pallas_binning 'gather': the gather engine (`_make_gather_blend_vjp`, "
+            "wildgaussians_tpu/ops/rasterize_pallas.py:2567) is not ported yet (ROADMAP.md, "
+            "Queue 1 item 14); use 'sort' or 'partition'")
+    if binning not in ("sort", "partition"):
+        raise ValueError(f"unknown pallas_binning {binning!r}: 'sort' or 'partition'")
+
+
 def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
                     pre_depth, pre_rect_min, pre_rect_max, pre_tiles_touched,
                     pre_valid, bg, *, grid: TileGrid,
                     max_tiles_per_gaussian: int = 16, d_small: int = 4,
-                    big_fraction: float = 0.16,
+                    big_fraction: float = 0.16, binning: str = "sort",
                     absgrad_hook: Optional[torch.Tensor] = None,
                     ndc_scale: Tuple[float, float] = (1.0, 1.0)
                     ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], Dict[str, torch.Tensor]]:
-    """Render several color sets over one shared sorted geometry.
+    """Render several color sets over one shared binned geometry.
+
+    binning: "sort" (the sort engine, `_DifferentiableBlend`) or
+    "partition" (the radix partition engine,
+    `partition_engine.PartitionBlend`, with its d_small,
+    `engine_d_small`); "gather" raises.
 
     Returns ([(color [H,W,3], final_T [H,W]) per color set], aux): aux
     holds the blend's inputs (`table`, `tile_starts`, `tile_counts`), its
-    per-tile `walked` counts and the sort engine's per-Gaussian `vis_count`,
-    `big_list` and slot order `sorted_flat`.
+    per-tile `walked` counts and `big_list`; the sort engine adds its
+    per-Gaussian `vis_count` and slot order `sorted_flat`, the partition
+    engine its whole `entry_table` (key rows first) and the `presort_meta`,
+    `rank_meta` (None without tier 2) and `tile_meta` of its partitions.
 
-    Differentiable (`_DifferentiableBlend`, with K2 and K3 in its backward)
+    Differentiable (K2 and K3 in the backward; K6 too for "partition")
     wherever grad is enabled; `absgrad_hook` [N, 2] (zeros) then receives
     the fused abs-gradient channel, scaled by `ndc_scale` = (0.5 W, 0.5 H).
     Under `no_grad` nothing is kept for a backward."""
+    check_binning(binning)
     if absgrad_hook is None:
         absgrad_hook = torch.zeros((mean2d.shape[0], 2), dtype=torch.float32,
                                    device=mean2d.device)
     aux: Dict[str, torch.Tensor] = {}
-    color, final_t = _DifferentiableBlend.apply(
+    if binning == "partition":
+        from .partition_engine import PartitionBlend, engine_d_small   # they import this module
+        fn, d_small = PartitionBlend, engine_d_small(d_small)
+    else:
+        fn = _DifferentiableBlend
+    color, final_t = fn.apply(
         mean2d, conic, opacity, torch.stack(colors_list), absgrad_hook, bg,
         pre_depth, pre_rect_min, pre_rect_max,
         torch.clamp_max(pre_tiles_touched, max_tiles_per_gaussian), pre_valid, grid,
