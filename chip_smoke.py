@@ -7,10 +7,11 @@ Run from the root of a checkout on a machine with one CUDA card (an H100;
 the kernels are built for sm_90a). Every phase is fatal on failure:
 
   1. the card (name and power limit from nvidia-smi), torch, CUDA and nvcc;
-  2. build every CUDA kernel of the serving and training paths (K1-K3, and
-     the radix pass K5 and its inverse K6 of the partition engine) from
-     wildgaussians_torch/csrc with nvcc, one process per source, all started
-     together, printing nvcc's register and shared-memory report;
+  2. build every CUDA kernel (K1-K3, the radix pass K5 and its inverse K6
+     of the partition engine, K4 of the static viewer path and the probes
+     P1 and P2) from wildgaussians_torch/csrc with nvcc, one process per
+     source, all started together, printing nvcc's register and
+     shared-memory report;
   3. check, on a 20k-Gaussian surfel scene at 512x384: each kernel against
      its plain PyTorch version on the card (K1 and K2 for 1-3 color passes,
      K3), the whole render path on the card against the same path on the
@@ -53,7 +54,27 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      first step, and K5 and K6 timed on each of that step's calls beside
      their bounds, their plain versions and the PyTorch calls that compute
      the same function. K5 runs 15 times per request and per step, K6 15
-     times per step.
+     times per step. The partition step's K2 also writes the per-pass abs
+     rows;
+  8. "raster", the rasterizer API at bench.py's shapes (1.5M Gaussians,
+     1280x720, d_max 10, d_small 4): rasterize_gaussians(backend="pallas")
+     on the random and the surfel scene, 8 forward-only calls, 4 forward +
+     backward calls of an L1 loss (sort engine) and one forward + backward
+     under the partition engine each, with ms per call, num_rendered and
+     overflow; K1-K3 (and K5, K6) held on the first call of each kind; then
+     one GaussianRasterizer call with SH degree 3 against
+     rasterize_gaussians on the colors it precomputes;
+  9. "static", the sort-once / blend-many viewer path on the surfel scene:
+     bin_static once per pose, 20 render_static frames per pose with the
+     background chained from the previous frame (bench.py's static mode):
+     bin ms, ms per frame and frames per second; K4 held against its plain
+     version, against K1 (bit for bit with bg 0) and the frame against
+     rasterize_gaussians (within 1e-6), and timed;
+ 10. "probes": P1 on the random and the surfel scene (what
+     `python -m wildgaussians_torch.profiles.probe_cfin` prints), the
+     torch.sort sections of probe_sortdesign and P2's five run-scatter
+     configurations; P1 held against K1's walked counts and its plain
+     version, P2 bit for bit against its plain version, both timed.
 
 Each path's launch counts are read over exactly that path's requests or
 steps (the counts are set to 0 just before them; the launches of the holds
@@ -73,6 +94,7 @@ import numpy as np
 import torch
 
 SEED = 0
+DEVICE = "cuda"             # where the scenes of the raster, static and probes phases live
 CHECK_N, CHECK_W, CHECK_H = 20_000, 512, 384
 FULL_N, FULL_W, FULL_H = 1_500_000, 1280, 720
 # K1 against its plain version: a pixel can differ only where an alpha sits
@@ -95,6 +117,10 @@ OPS_EVALUATED, OPS_EXP, OPS_USED, OPS_CONTRIB, OPS_PER_PASS = 12, 3 + SFU_COST, 
 # operations) and per pass cg, the prefix, the suffix and dcol (13), plus one
 # add per gradient row (7 + 3 per pass) for the sum over the tile's pixels
 K2_OPS_CONTRIB, K2_OPS_PER_PASS = 40 + 7, 13 + 3
+# with the per-pass abs rows (the partition engine), per contributing pair
+# and pass: that pass's dalpha with its divide, dpower, |dmx|, |dmy| and
+# their two pixel sums
+K2_OPS_PASS_ABS = 20
 # K2 against its plain version, per gradient row: max |error| over max |row|.
 # The kernel sums each entry's values over 256 pixels in another order (warp
 # shuffles, then 8 warp sums) and runs T as a product where the plain
@@ -108,6 +134,14 @@ PROFILE_REQUESTS = 5
 CHECK_SKY = 2000            # sky candidates of the check phase's training set
 TRAIN_STEPS, TRAIN_PROFILE_STEPS = 8, 2
 PARTITION_REQUESTS, PARTITION_STEPS = 4, 4
+# the rasterizer API, the static viewer path and the probes run at bench.py's
+# knobs: d_max 10, d_small 4 (big fraction 0.16), chunk 256
+RASTER_D_MAX, RASTER_D_SMALL = 10, 4
+RASTER_FWD, RASTER_BWD, STATIC_FRAMES = 8, 4, 20
+# the static frame against the pallas backend's frame of the same scene (the
+# JAX test's bound, tests/test_rasterize_pallas.py), and the
+# GaussianRasterizer against rasterize_gaussians on the colors it computes
+TOL_STATIC = 1e-6
 
 
 def check(cond, msg):
@@ -134,33 +168,48 @@ def nvcc_line():
 
 def kernels():
     """Every kernel of the serving and training paths, over the sort and
-    the partition engine, with its wrapper, its plain version and the
-    paths that launch it."""
-    from wildgaussians_torch.ops import blend, partition
+    the partition engine, of the rasterizer API, the static viewer path and
+    the probes, with its wrapper, its plain version and the paths that
+    launch it."""
+    from wildgaussians_torch.ops import blend, partition, static_blend
+    from wildgaussians_torch.profiles import probe_cfin, probe_sortdesign
     return [dict(name="blend_fwd", route="cuda", source="wildgaussians_torch/csrc/blend_fwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:376",
                  wrapper=blend.blend_forward, plain=blend.blend_forward_plain,
-                 paths=("serve", "train", "partition_serve", "partition_train")),
+                 paths=("serve", "train", "partition_serve", "partition_train", "raster")),
             dict(name="blend_bwd", route="cuda", source="wildgaussians_torch/csrc/blend_bwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:493",
                  also_replaces=["wildgaussians_tpu/ops/rasterize_pallas.py:482",
                                 "wildgaussians_tpu/ops/rasterize_pallas.py:501"],
                  wrapper=blend.blend_backward, plain=blend.blend_backward_plain,
-                 paths=("train", "partition_train")),
+                 paths=("train", "partition_train", "raster")),
             dict(name="tier2_merge", route="cuda",
                  source="wildgaussians_torch/csrc/tier2_merge.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:872",
                  wrapper=blend.tier2_merge, plain=blend.tier2_merge_plain,
-                 paths=("train", "partition_train")),
+                 paths=("train", "partition_train", "raster")),
+            dict(name="blend_fwd_planar", route="cuda",
+                 source="wildgaussians_torch/csrc/blend_fwd_planar.cu",
+                 replaces="wildgaussians_tpu/ops/rasterize_pallas.py:1472",
+                 wrapper=static_blend.blend_forward_planar,
+                 plain=static_blend.blend_forward_planar_plain, paths=("static",)),
             dict(name="radix_pass", route="cuda", source="wildgaussians_torch/csrc/radix_pass.cu",
                  replaces="wildgaussians_tpu/ops/partition.py:173",
                  wrapper=partition.radix_pass, plain=partition.radix_pass_plain,
-                 paths=("partition_serve", "partition_train")),
+                 paths=("partition_serve", "partition_train", "raster")),
             dict(name="radix_unpass", route="cuda",
                  source="wildgaussians_torch/csrc/radix_unpass.cu",
                  replaces="wildgaussians_tpu/ops/partition.py:376",
                  wrapper=partition.radix_unpass, plain=partition.radix_unpass_plain,
-                 paths=("partition_train",))]
+                 paths=("partition_train", "raster")),
+            dict(name="probe_cfin", route="cuda", source="wildgaussians_torch/csrc/probe_cfin.cu",
+                 replaces="tools/profiles/probe_cfin.py:95",
+                 wrapper=probe_cfin.probe_cfin, plain=probe_cfin.probe_cfin_plain,
+                 paths=("probes",)),
+            dict(name="run_scatter", route="cuda", source="wildgaussians_torch/csrc/run_scatter.cu",
+                 replaces="tools/profiles/probe_sortdesign.py:161",
+                 wrapper=probe_sortdesign.run_scatter, plain=probe_sortdesign.run_scatter_plain,
+                 paths=("probes",))]
 
 
 def kernel_by_name(name):
@@ -835,13 +884,17 @@ def k2_bound_ms(inputs, walked, pairs):
     entries' gradient rows written once over the memory rate, against the
     operations the pairs need (K1's per kind, plus the gradient chain per
     contributing pair) over the FP32 rate."""
+    from wildgaussians_torch.ops import blend
     table, _s, tile_counts, _g, n_passes = inputs[:5]
+    pass_abs = len(inputs) > 10 and inputs[10] is not None
     T = int(tile_counts.shape[0])
     w = int(walked.sum())
     bytes_moved = (w * table.shape[0] * 4 + T * 8 + 2 * n_passes * T * 256 * 3 * 4
-                   + 2 * T * 256 * 4 + w * (7 + 3 * n_passes) * 4)
+                   + (2 + (n_passes if pass_abs else 0)) * T * 256 * 4
+                   + w * blend.grad_rows(n_passes, pass_abs) * 4)
     ops = (pairs["evaluated"] * OPS_EVALUATED + pairs["exp"] * OPS_EXP + pairs["used"] * OPS_USED
-           + pairs["contributing"] * (K2_OPS_CONTRIB + K2_OPS_PER_PASS * n_passes))
+           + pairs["contributing"] * (K2_OPS_CONTRIB + K2_OPS_PER_PASS * n_passes
+                                      + (K2_OPS_PASS_ABS * n_passes if pass_abs else 0)))
     t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
@@ -958,6 +1011,326 @@ def partition_stages(sizes):
     return {"radix_pass": k5, "radix_unpass": k6}
 
 
+def scene_tensors(kind, n, width, height):
+    """bench.py's random (`make_random_scene`) or surfel scene of n
+    Gaussians from SEED on the card, the identity camera with focal length
+    width / 1.4, and that camera's CameraParams."""
+    from wildgaussians_torch.cameras import make_camera_params
+    from wildgaussians_torch.scenes import make_random_scene, make_surfel_scene
+    make = make_random_scene if kind == "random" else make_surfel_scene
+    arrays = make(np.random.default_rng(SEED), n, width, height, width / 1.4)
+    dev = torch.device(DEVICE)
+    cam = camera(np.eye(4)[:3], width, height, width / 1.4)
+    params, _w, _h = make_camera_params(cam, device=dev)
+    return tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in arrays), params
+
+
+def reset_counts(ks):
+    for k in ks:
+        k["wrapper"].launches = 0
+
+
+def launch_counts(ks):
+    return {k["name"]: k["wrapper"].launches for k in ks}
+
+
+def hold_raster(captured, radix, label, errs):
+    """K1, K2 and K3 (and K5, K6 where the partition engine ran) against
+    their plain versions on the arguments one rasterize_gaussians call
+    passed them (blend_calls / radix_calls)."""
+    errs["blend_fwd"].append(check_kernel(kernel_by_name("blend_fwd"), captured["blend_fwd"],
+                                          label))
+    if "blend_bwd" in captured:
+        errs["blend_bwd"].append(check_k2(captured["blend_bwd"], label))
+        errs["tier2_merge"].append(check_k3(*captured["tier2_merge"], label))
+    for name, err in check_radix(radix, label).items():
+        errs[name].append(err)
+
+
+def phase_raster(errs):
+    """The rasterizer API at bench.py's shapes: rasterize_gaussians(backend=
+    "pallas") on the random and the surfel scene (1.5M Gaussians, 1280x720,
+    d_max 10, d_small 4): RASTER_FWD forward-only calls (the first a
+    warm-up), RASTER_BWD forward + backward calls of an L1 loss against a
+    seeded target, under the sort engine, and one forward + backward with
+    binning="partition"; then a GaussianRasterizer call with SH degree 3
+    `shs` on the surfel scene against rasterize_gaussians on the colors it
+    precomputes. The kernels are held against their plain versions on the
+    first call of each kind (outside the counted calls). Returns each
+    kernel's launches over the counted calls."""
+    from wildgaussians_torch.ops import raster_api
+    from wildgaussians_torch.ops.rasterize import rasterize_gaussians
+    from wildgaussians_torch.ops.sh import eval_sh_switch
+    ks = [k for k in kernels() if "raster" in k["paths"]]
+    launches = {k["name"]: 0 for k in ks}
+    knobs = dict(kernel_size=0.1, backend="pallas", max_tiles_per_gaussian=RASTER_D_MAX,
+                 d_small=RASTER_D_SMALL, chunk=256)
+    for kind in ("random", "surfel"):
+        (xyz, scales, rots, opac, colors), cam = scene_tensors(kind, FULL_N, FULL_W, FULL_H)
+        g = torch.Generator(device=xyz.device).manual_seed(SEED)
+        target = torch.rand((FULL_H, FULL_W, 3), generator=g, device=xyz.device)
+        out_rows = {}
+        for mode, binning, calls in (("forward", "sort", RASTER_FWD),
+                                     ("forward+backward", "sort", RASTER_BWD),
+                                     ("forward+backward", "partition", 1)):
+            ms, info = [], None
+            for i in range(calls):
+                captured, radix = {}, {}
+                params = [t.clone().requires_grad_(mode != "forward")
+                          for t in (xyz, scales, rots, opac, colors)]
+                reset_counts(ks)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with kernel_calls(captured, radix) if i == 0 else contextlib.nullcontext(), \
+                        torch.set_grad_enabled(mode != "forward"):
+                    out = rasterize_gaussians(*params, cam, FULL_W, FULL_H, binning=binning,
+                                              **knobs)
+                    if mode != "forward":
+                        (out.color - target).abs().mean().backward()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                for name, c in launch_counts(ks).items():
+                    launches[name] += c
+                if i == 0:
+                    check(out.color.shape == (FULL_H, FULL_W, 3)
+                          and bool(torch.isfinite(out.color).all()), f"{kind} {mode} color")
+                    if mode != "forward":
+                        check(all(bool(torch.isfinite(p.grad).all()) and float(p.grad.abs().max()) > 0
+                                  for p in params), f"{kind} {mode} {binning}: gradients")
+                    info = {"num_rendered": int(out.num_rendered), "overflow": int(out.overflow)}
+                    label = f"raster {kind} {mode} {binning} at {FULL_W}x{FULL_H}, {FULL_N}"
+                    hold_raster(captured, radix, label, errs)
+                    del captured, radix
+                    torch.cuda.empty_cache()
+                del out, params
+            out_rows[f"{mode} {binning}"] = {"calls": calls, "ms": ms,
+                                              "steady_mean_ms": float(np.mean(ms[1:] or ms)),
+                                              **info}
+        emit({"phase": "raster", "scene": kind, "gaussians": FULL_N, "size": [FULL_W, FULL_H],
+              "d_max": RASTER_D_MAX, "d_small": RASTER_D_SMALL, **out_rows})
+    # GaussianRasterizer at SH degree 3 on the surfel scene
+    g = torch.Generator(device=xyz.device).manual_seed(SEED)
+    shs = torch.randn((FULL_N, 16, 3), generator=g, device=xyz.device) * 0.2
+    settings = raster_api.GaussianRasterizationSettings(
+        image_height=FULL_H, image_width=FULL_W, tanfovx=float(cam.tan_fov[0]),
+        tanfovy=float(cam.tan_fov[1]), kernel_size=0.1, subpixel_offset=None,
+        bg=torch.zeros(3, device=xyz.device), scale_modifier=1.0,
+        viewmatrix=cam.viewmatrix.T, projmatrix=cam.projmatrix.T, sh_degree=3,
+        campos=cam.campos, prefiltered=False, debug=False)
+    means2d = torch.zeros((FULL_N, 2), device=xyz.device, requires_grad=True)
+    reset_counts(ks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    color, radii, acc = raster_api.GaussianRasterizer(settings)(
+        xyz, means2d, opac, shs=shs, scales=scales, rotations=rots, backend="pallas",
+        max_tiles_per_gaussian=RASTER_D_MAX, d_small=RASTER_D_SMALL)
+    color.mean().backward()
+    torch.cuda.synchronize()
+    api_ms = (time.perf_counter() - t0) * 1e3
+    for name, c in launch_counts(ks).items():
+        launches[name] += c
+    with torch.no_grad():
+        dirs = xyz - cam.campos[None]
+        dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-12)
+        cols = torch.clamp_min(eval_sh_switch(3, 3, shs.transpose(1, 2), dirs) + 0.5, 0.0)
+        want = rasterize_gaussians(xyz, scales, rots, opac, cols, cam, FULL_W, FULL_H, **knobs)
+    diff = float((color.detach() - want.color.permute(2, 0, 1)).abs().max())
+    emit({"phase": "raster", "api": "GaussianRasterizer", "sh_degree": 3, "ms": api_ms,
+          "vs_rasterize_gaussians_max_abs_diff": diff,
+          "means2d_grad_max_abs": float(means2d.grad.abs().max()),
+          "visible": int((radii > 0).sum()), "mean_accumulation": float(acc.mean())})
+    check(diff <= TOL_STATIC, f"GaussianRasterizer differs from rasterize_gaussians by {diff}")
+    check(float(means2d.grad.abs().max()) > 0, "GaussianRasterizer: no means2D gradient")
+    return launches
+
+
+def phase_static(errs):
+    """The static viewer path on the surfel scene (1.5M Gaussians, 1280x720,
+    d_max 10, d_small 4) from the 4 poses: bin_static once per pose, then
+    STATIC_FRAMES render_static frames, each with bg chained from the
+    previous frame's mean (bench.py's static mode). K4 is held on the first
+    frame's arguments against its plain version, against K1 on the same
+    table (bg 0: bit for bit), and a frame with a background against
+    rasterize_gaussians (backend "pallas") of the same pose and background
+    within TOL_STATIC. Returns K4's launches over the frames and its
+    timing."""
+    from wildgaussians_torch.cameras import make_camera_params
+    from wildgaussians_torch.ops import blend, static_blend
+    from wildgaussians_torch.ops.rasterize import bin_static, rasterize_gaussians, render_static
+    from wildgaussians_torch.ops.rasterize_tiled import make_grid
+    k4 = kernel_by_name("blend_fwd_planar")
+    ks = [k for k in kernels() if "static" in k["paths"]]
+    (xyz, scales, rots, opac, colors), _cam = scene_tensors("surfel", FULL_N, FULL_W, FULL_H)
+    knobs = dict(max_tiles_per_gaussian=RASTER_D_MAX, d_small=RASTER_D_SMALL, chunk=256)
+    grid = make_grid(FULL_W, FULL_H, 16)
+    launches, timing, per_pose = 0, None, []
+    for pose_i, pose in enumerate(poses()):
+        cam, _w, _h = make_camera_params(camera(pose, FULL_W, FULL_H, FULL_W / 1.4),
+                                         device=xyz.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sb = bin_static(xyz, scales, rots, opac, colors, cam, FULL_W, FULL_H, kernel_size=0.1,
+                        **knobs)
+        torch.cuda.synchronize()
+        bin_ms = (time.perf_counter() - t0) * 1e3
+        captured = []
+        with calls_of(static_blend, "blend_forward_planar",
+                      lambda *a: captured.append(a)):
+            color, final_t = render_static(sb, FULL_N, FULL_W, FULL_H, **knobs)   # warm-up
+        carry = color.mean()
+        reset_counts(ks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STATIC_FRAMES):
+            bg = torch.zeros(3, device=xyz.device) + 0.0 * carry
+            color, final_t = render_static(sb, FULL_N, FULL_W, FULL_H, bg=bg, **knobs)
+            carry = color.mean()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3 / STATIC_FRAMES
+        launches += launch_counts(ks)["blend_fwd_planar"]
+        check(color.shape == (FULL_H, FULL_W, 3) and bool(torch.isfinite(color).all()),
+              "static frame")
+        per_pose.append({"pose": pose_i, "bin_ms": bin_ms, "frame_ms": frame_ms,
+                         "fps": 1e3 / frame_ms, "binned_entries": int(sb.tile_starts[-1]),
+                         "mean_accumulation": float(1.0 - final_t.mean())})
+        if pose_i == 0:
+            args = captured[0]
+            label = f"static frame, pose 0, {FULL_W}x{FULL_H}, {FULL_N} surfel Gaussians"
+            out = k4["wrapper"](*args)
+            plain = k4["plain"](*args)
+            torch.cuda.synchronize()
+            err = (out - plain).abs().amax(dim=(0, 1))
+            over = int((err > TOL_PIXEL).sum())
+            max_err = float(err.max())
+            emit({"check": "blend_fwd_planar", "at": label, "max_abs_err": max_err,
+                  "pixels_over_1e-4": over, "pixels": err.numel()})
+            check(max_err <= TOL_MAX and over <= TOL_FRAC * err.numel(),
+                  f"blend_fwd_planar disagrees with its plain version at {label}")
+            errs["blend_fwd_planar"].append((max_err, over))
+            table, starts, counts = args[:3]
+            zero = k4["wrapper"](table, starts, counts, grid, 1,
+                                 torch.zeros(3, device=xyz.device))
+            kc, kt, walked = blend.blend_forward(table, starts, counts, grid, 1)
+            torch.cuda.synchronize()
+            equal_k1 = bool(torch.equal(zero[0, :3], kc[0].permute(2, 0, 1))
+                            and torch.equal(zero[0, 3], kt))
+            bg_test = torch.tensor([0.2, 0.5, 0.1], device=xyz.device)
+            color_bg, final_t_bg = render_static(sb, FULL_N, FULL_W, FULL_H, bg=bg_test, **knobs)
+            ref = rasterize_gaussians(xyz, scales, rots, opac, colors, cam, FULL_W, FULL_H,
+                                      kernel_size=0.1, backend="pallas", bg=bg_test, **knobs)
+            vs_pallas = max(float((color_bg - ref.color).abs().max()),
+                            float((final_t_bg - ref.final_T).abs().max()))
+            emit({"check": "blend_fwd_planar vs blend_fwd (bg 0)", "at": label,
+                  "equal": equal_k1, "static_vs_rasterize_gaussians_max_abs_diff": vs_pallas})
+            check(equal_k1, "K4 with bg 0 is not K1 bit for bit")
+            check(vs_pallas <= TOL_STATIC, f"static frame differs from rasterize_gaussians by "
+                                           f"{vs_pallas}")
+            pairs = blend.blend_pair_counts(table, starts, counts, grid)
+            # K1's work: the same walk, and the same four output planes
+            bound, by = blend_bound_ms(table, counts, walked, 1, pairs)
+            timing = dict(ms=time_cuda_ms(lambda: k4["wrapper"](*args), iters=20),
+                          plain_ms=time_cuda_ms(lambda: k4["plain"](*args), iters=3, warmup=1),
+                          bound_ms=bound, bound_by=by, library_ms=None)
+            emit({"phase": "timing", "kernel": "blend_fwd_planar", "at": label, "pairs": pairs,
+                  "walked_entries": int(walked.sum()), **timing})
+            del args, captured, out, plain, zero, ref, color_bg, final_t_bg
+            torch.cuda.empty_cache()
+    emit({"phase": "static", "gaussians": FULL_N, "size": [FULL_W, FULL_H],
+          "frames_per_pose": STATIC_FRAMES, "per_pose": per_pose,
+          "frame_ms_mean": float(np.mean([p["frame_ms"] for p in per_pose])),
+          "fps_mean": float(np.mean([p["fps"] for p in per_pose]))})
+    return {"blend_fwd_planar": launches}, timing
+
+
+def probe_bound_ms(table, tile_counts, walked, pairs):
+    """Least time of P1's work: K1's walk without the colors: the walked
+    entries' six geometry rows read once and [T, 3] written, against K1's
+    operations per pair but the weight and the color FMAs."""
+    T = int(tile_counts.shape[0])
+    bytes_moved = int(walked.sum()) * 6 * 4 + T * 8 + T * 12
+    ops = (pairs["evaluated"] * OPS_EVALUATED + pairs["exp"] * OPS_EXP
+           + pairs["used"] * OPS_USED)
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def phase_probes(errs):
+    """The probes: P1 on the sort engine's table of the random and the
+    surfel scene at the JAX probe's settings (what probe_cfin prints), then
+    probe_sortdesign's torch.sort sections and P2's five run-scatter
+    configurations. Then, outside the counted run, P1 against K1's walked
+    counts (every tile) and its plain version (>= 99.9 % of tiles), P2
+    against its plain version bit for bit on each configuration, and P1's
+    timing beside its bound and plain version. Returns the launches over
+    the probes' run and the timings (sums over the two frames and the five
+    configurations)."""
+    from wildgaussians_torch.ops import blend
+    from wildgaussians_torch.profiles import probe_cfin, probe_sortdesign
+    ks = [k for k in kernels() if "probes" in k["paths"]]
+    reset_counts(ks)
+    frames, summaries = {}, {}
+    for kind in ("random", "surfel"):
+        arrays, cam = scene_tensors(kind, FULL_N, FULL_W, FULL_H)
+        table, starts, counts, grid = probe_cfin.probe_table(arrays, cam, FULL_W, FULL_H)
+        out = probe_cfin.probe_cfin(table, starts, counts, grid)
+        summaries[kind] = probe_cfin.cfin_summary(out, counts)
+        frames[kind] = (table, starts, counts, grid, out)
+        print(f"probe_cfin {kind}:", flush=True)
+        probe_cfin.print_summary(summaries[kind])
+        del arrays
+    sorts = probe_sortdesign.sort_measurements(torch.device(DEVICE), log=lambda *a: None)
+    scatter = probe_sortdesign.scatter_measurements(torch.device(DEVICE))
+    launches = launch_counts(ks)
+    emit({"phase": "probes", "probe_cfin": summaries, "sorts": sorts, "run_scatter": scatter})
+
+    timing = {"probe_cfin": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+                                 per="the random and the surfel frame")}
+    for kind, (table, starts, counts, grid, out) in frames.items():
+        label = f"probe_cfin {kind} scene, {FULL_N} Gaussians, {FULL_W}x{FULL_H}"
+        walked = blend.blend_forward(table, starts, counts, grid, 1)[2]
+        plain = probe_cfin.probe_cfin_plain(table, starts, counts, grid)
+        torch.cuda.synchronize()
+        k1_equal = bool(torch.equal(out[:, 2], walked))
+        agree = float((out == plain).all(dim=1).float().mean())
+        emit({"check": "probe_cfin", "at": label, "walked_equal_k1": k1_equal,
+              "tiles_agreeing_with_plain": agree})
+        check(k1_equal, f"P1's walked counts differ from K1's at {label}")
+        check(agree >= 0.999, f"P1 agrees with its plain version on {agree} of tiles at {label}")
+        errs["probe_cfin"].append(float((out - plain).abs().max()))
+        pairs = blend.blend_pair_counts(table, starts, counts, grid)
+        bound, by = probe_bound_ms(table, counts, walked, pairs)
+        t = timing["probe_cfin"]
+        t["ms"] += time_cuda_ms(lambda: probe_cfin.probe_cfin(table, starts, counts, grid),
+                                iters=20)
+        t["plain_ms"] += time_cuda_ms(lambda: probe_cfin.probe_cfin_plain(table, starts, counts,
+                                                                          grid),
+                                      iters=2, warmup=1)
+        t["bound_ms"] += bound
+        t["bound_by"] = by
+    emit({"phase": "timing", "kernel": "probe_cfin", **timing["probe_cfin"]})
+    del frames
+    torch.cuda.empty_cache()
+
+    t = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bound_by="bytes",
+             per="the five run-scatter configurations")
+    for row in scatter:
+        src, st = probe_sortdesign.scatter_inputs(row["C"], row["K"], row["E"], row["RUN"],
+                                                  torch.device(DEVICE))
+        got = probe_sortdesign.run_scatter(src, st, row["E"], row["RUN"])
+        want = probe_sortdesign.run_scatter_plain(src, st, row["E"], row["RUN"])
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"run_scatter differs from its plain version at {row}")
+        t["plain_ms"] += time_cuda_ms(lambda: probe_sortdesign.run_scatter_plain(
+            src, st, row["E"], row["RUN"]), iters=3, warmup=1)
+        for key in ("ms", "bound_ms", "library_ms"):
+            t[key] += row[key]
+        del src, st, got, want
+    errs["run_scatter"].append(0.0)
+    emit({"phase": "timing", "kernel": "run_scatter", **t})
+    timing["run_scatter"] = t
+    return launches, timing
+
+
 def engine_sizes(model):
     from wildgaussians_torch.ops.partition_engine import engine_d_small, partition_engine_sizes
     from wildgaussians_torch.ops.rasterize_tiled import make_grid
@@ -1029,6 +1402,15 @@ def main():
         del serve_model
         torch.cuda.empty_cache()
 
+    # the rasterizer API, the static viewer path and the probes, at bench.py's
+    # shapes
+    launches["raster"] = phase_raster(errs)
+    torch.cuda.empty_cache()
+    launches["static"], timings["blend_fwd_planar"] = phase_static(errs)
+    torch.cuda.empty_cache()
+    launches["probes"], probe_timings = phase_probes(errs)
+    timings.update(probe_timings)
+
     entries = []
     for k in ks:
         name = k["name"]
@@ -1036,13 +1418,13 @@ def main():
         for path in k["paths"]:
             check(by_path[path] > 0, f"{name} was not launched on the {path} path")
         entry = {"name": name, "route": k["route"], "source": k["source"],
-                 "replaces": k["replaces"], "launches": sum(by_path.values()),
-                 "launches_by_path": by_path,
+                 "replaces": k["replaces"], "paths": list(k["paths"]),
+                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                  "max_abs_err": max(e[0] if isinstance(e, tuple) else e for e in errs[name]),
                  **timings[name]}
         if "also_replaces" in k:
             entry["also_replaces"] = k["also_replaces"]
-        if name == "blend_fwd":
+        if name in ("blend_fwd", "blend_fwd_planar"):
             entry["pixels_over_1e-4"] = max(o for _, o in errs[name])
         if name == "blend_bwd":
             entry["max_row_rel_err"] = max(r for _, r in errs[name])

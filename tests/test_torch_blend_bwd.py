@@ -22,7 +22,7 @@ from wildgaussians_tpu.ops.rasterize_tiled import make_grid as jmake_grid
 from wildgaussians_torch.cameras import make_camera_params
 from wildgaussians_torch.ops import blend as tblend
 from wildgaussians_torch.ops.gaussians import compute_cov3d, preprocess
-from wildgaussians_torch.ops.rasterize import overflow_count
+from wildgaussians_torch.ops.rasterize import engine_overflow_count
 from wildgaussians_torch.ops.rasterize_tiled import make_grid
 
 TOL_ATOL, TOL_RTOL = 5e-3, 5e-2
@@ -97,7 +97,7 @@ def _port_grads(arrays, colors, targets, bg, w, h, captured):
         max_tiles_per_gaussian=D_MAX, d_small=D_SMALL, big_fraction=BIG_FRACTION,
         absgrad_hook=hook, ndc_scale=NDC)
     g = torch.autograd.grad(_loss(images, torch.tensor(targets), torch), [*geo, *cols, hook, bg_t])
-    overflow = overflow_count(torch.tensor(arrays["tiles_touched"]), aux["vis_count"], D_MAX,
+    overflow = engine_overflow_count(torch.tensor(arrays["tiles_touched"]), aux["vis_count"], D_MAX,
                               d_small=D_SMALL, big_fraction=BIG_FRACTION)
     return ([x.numpy() for x in g[:3]] + [torch.stack(g[3:3 + len(cols)]).numpy(),
                                           g[-2].numpy(), g[-1].numpy()], int(overflow), aux)

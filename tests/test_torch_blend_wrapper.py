@@ -10,7 +10,7 @@ from helpers import make_camera, make_scene, numpy_sequential_rasterize
 from wildgaussians_torch.cameras import make_camera_params
 from wildgaussians_torch.ops import blend as tblend
 from wildgaussians_torch.ops.gaussians import compute_cov3d, preprocess
-from wildgaussians_torch.ops.rasterize import overflow_count
+from wildgaussians_torch.ops.rasterize import engine_overflow_count
 from wildgaussians_torch.ops.rasterize_tiled import make_grid
 
 ATOL_SEQ = 1e-4   # log-space prefix vs the sequential product
@@ -79,7 +79,7 @@ def test_blend_wrapper_on_cpu():
         pre.mean2d, pre.conic, pre.opacity, [t(scene["colors"])], pre.depth, pre.rect_min,
         pre.rect_max, pre.tiles_touched, pre.valid, t(bg), grid=make_grid(w, h, 16))
     # nothing truncated: the sort engine bins every visible cell
-    assert int(overflow_count(pre.tiles_touched, aux["vis_count"], 16)) == 0
+    assert int(engine_overflow_count(pre.tiles_touched, aux["vis_count"], 16)) == 0
     a = {k: v.numpy() for k, v in pre._asdict().items()}
     ref_c, ref_t = numpy_sequential_rasterize(
         a["mean2d"], a["depth"], a["conic"], a["opacity"], scene["colors"], a["valid"],

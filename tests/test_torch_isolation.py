@@ -31,6 +31,9 @@ def _imports(tree):
 
 def test_no_jax_and_no_toplevel_triton():
     assert len(FILES) > 10 and all(f.exists() for f in FILES)
+    # the probes' subpackage is part of the port and held to the same rules
+    assert {"probe_cfin.py", "probe_sortdesign.py"} <= {
+        f.name for f in FILES if f.parent.name == "profiles"}
     for path in FILES:
         tree = ast.parse(path.read_text(), filename=str(path))
         for name, at_top in _imports(tree):

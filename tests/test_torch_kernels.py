@@ -1,8 +1,13 @@
 """The CUDA kernels against their plain versions on the card: K1 (the blend
 forward), K2 (its backward, per gradient row within 2e-3 of the row's
-largest value: the kernel sums each entry over 256 pixels in another order),
-K3 (the tier-2 merge, exactly), and K5 and K6 (a radix pass and its inverse:
-they only move values, so exactly, pass by pass). This file
+largest value: the kernel sums each entry over 256 pixels in another order;
+with and without its per-pass abs rows, whose summed rows stay bit for bit
+those without them), K3 (the tier-2 merge, exactly), K4 (the planar static
+blend: as K1 against its plain version, and equal to K1 bit for bit with
+bg = 0), K5 and K6 (a radix pass and its inverse: they only move values,
+so exactly, pass by pass), P1 (the early-exit probe: its walked counts
+equal to K1's, its chunk counts exactly) and P2 (the run scatter, exactly,
+on the probe's five configurations, scaled down). This file
 imports neither JAX nor the test helpers, so that it also runs on a machine
 with a card and no JAX:
 
@@ -18,9 +23,12 @@ import torch
 from wildgaussians_torch.cameras import make_camera_params_torch
 from wildgaussians_torch.ops import blend as tblend
 from wildgaussians_torch.ops import partition as tpart
+from wildgaussians_torch.ops import static_blend as tstatic
 from wildgaussians_torch.ops.gaussians import compute_cov3d, preprocess
 from wildgaussians_torch.ops.rasterize_tiled import make_grid
 from wildgaussians_torch.ops.sort_engine import _build_sorted_table
+from wildgaussians_torch.profiles import probe_cfin as tcfin
+from wildgaussians_torch.profiles import probe_sortdesign as tsort
 from wildgaussians_torch.scenes import make_surfel_scene
 
 
@@ -63,6 +71,16 @@ def _check_backward(st, grid, n_passes, dev):
     plain = tblend.blend_backward_plain(*args)
     rel = (rows - plain).abs().amax(1) / torch.clamp_min(plain.abs().amax(1), 1e-30)
     assert torch.isfinite(rows).all() and rel.max().item() <= 2e-3, f"{n_passes} passes: {rel}"
+    # the per-pass abs rows: each pass's own gt_eff, summing to gte
+    gte_pass = torch.randn((n_passes,) + final_t.shape, generator=g, device=dev) * 1e-3
+    gte_pass[-1] = gte - gte_pass[:-1].sum(0)
+    with_abs = tblend.blend_backward(*args, gte_pass.contiguous())
+    plain_abs = tblend.blend_backward_plain(*args, gte_pass)
+    torch.cuda.synchronize()
+    assert with_abs.shape[0] == tblend.grad_rows(n_passes, True)
+    assert torch.equal(with_abs[:rows.shape[0]], rows), "the summed rows must not move"
+    rel = (with_abs - plain_abs).abs().amax(1) / torch.clamp_min(plain_abs.abs().amax(1), 1e-30)
+    assert rel.max().item() <= 2e-3, f"{n_passes} passes, per-pass abs rows: {rel}"
 
     n = st.vis_count.shape[0]
     sums = torch.randn((rows.shape[0], n), generator=g, device=dev)
@@ -133,5 +151,57 @@ def test_blend_kernel_matches_plain_on_card():
         assert (err > 1e-4).float().mean().item() <= 1e-4, f"{n_passes} passes"
         assert torch.all(kw <= st.tile_counts) and int((kw != pw).sum()) <= 2
         assert int((kw < st.tile_counts).sum()) > 0    # some tiles exit early
+        _check_planar(st, grid, n_passes, dev, (kc, kt))
         _check_backward(st, grid, n_passes, dev)
+        if n_passes == 1:
+            _check_probe(st, grid, kw)
     _check_radix(dev)
+    _check_run_scatter(dev)
+
+
+def _check_planar(st, grid, n_passes, dev, k1_out):
+    """K4 against its plain version, as K1; with bg = 0 its planes are K1's
+    colors and final T bit for bit."""
+    bg = torch.tensor([0.3, 0.6, 0.9], device=dev)
+    before = tstatic.blend_forward_planar.launches
+    out = tstatic.blend_forward_planar(st.table, st.tile_starts, st.tile_counts, grid, n_passes,
+                                       bg)
+    zero = tstatic.blend_forward_planar(st.table, st.tile_starts, st.tile_counts, grid,
+                                        n_passes, torch.zeros(3, device=dev))
+    torch.cuda.synchronize()
+    assert tstatic.blend_forward_planar.launches == before + 2
+    plain = tstatic.blend_forward_planar_plain(st.table, st.tile_starts, st.tile_counts, grid,
+                                               n_passes, bg)
+    err = (out - plain).abs().amax(dim=(0, 1))
+    assert err.max().item() <= 5e-3 and (err > 1e-4).float().mean().item() <= 1e-4
+    kc, kt = k1_out
+    assert torch.equal(zero[:, :3], kc.permute(0, 3, 1, 2))
+    assert torch.equal(zero[:, 3], kt[None].expand(n_passes, -1, -1))
+
+
+def _check_probe(st, grid, k1_walked):
+    """P1: K1's walked counts, and the chunk counts they imply."""
+    before = tcfin.probe_cfin.launches
+    out = tcfin.probe_cfin(st.table, st.tile_starts, st.tile_counts, grid)
+    torch.cuda.synchronize()
+    assert tcfin.probe_cfin.launches == before + 1
+    assert torch.equal(out[:, 2], k1_walked)
+    assert torch.equal(out[:, 1], (st.tile_counts + 255) // 256)
+    assert torch.equal(out[:, 0], (k1_walked + 255) // 256)
+    plain = tcfin.probe_cfin_plain(st.table, st.tile_starts, st.tile_counts, grid)
+    assert (out != plain).any(dim=1).float().mean().item() <= 1e-3
+
+
+def _check_run_scatter(dev):
+    """P2 on the probe's five configurations with C cut by 16, exactly; a
+    misaligned start takes the word path."""
+    for C, K, E, run in tsort.SCATTER_CONFIGS:
+        C = max(C // 16, 2)
+        src, starts = tsort.scatter_inputs(C, K, E, run, dev)
+        if E > 1:
+            starts[1] += 3
+        before = tsort.run_scatter.launches
+        got = tsort.run_scatter(src, starts, E, run)
+        torch.cuda.synchronize()
+        assert tsort.run_scatter.launches == before + 1
+        assert torch.equal(got, tsort.run_scatter_plain(src, starts, E, run)), (C, E, run)

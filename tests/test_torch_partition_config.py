@@ -123,7 +123,7 @@ def _check_render_path(model, monkeypatch):
             torch.clamp_max(pre.tiles_touched, d_max), pre.valid).vis_count
         d_small = (teng.engine_d_small(cfg.pallas_d_small) if binning == "partition"
                    else cfg.pallas_d_small)
-        got = int(trast.overflow_count(pre.tiles_touched, vis, d_max, d_small=d_small,
+        got = int(trast.engine_overflow_count(pre.tiles_touched, vis, d_max, d_small=d_small,
                                        big_fraction=big_fraction, binning=binning,
                                        valid=pre.valid))
         assert got == want, (binning, big_fraction)

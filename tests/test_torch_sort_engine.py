@@ -99,6 +99,6 @@ def test_sort_engine_matches_jax_exactly():
     assert int(np.sum(j_vis > D_SMALL)) > max(int(300 * BIG_FRACTION), 8)
     j_over = jrast.overflow_count(jpre, "pallas", D_MAX, d_small=D_SMALL,
                                   big_fraction=BIG_FRACTION, binning="sort", grid=grid_j)
-    t_over = trast.overflow_count(tpre.tiles_touched, t.vis_count, D_MAX, d_small=D_SMALL,
+    t_over = trast.engine_overflow_count(tpre.tiles_touched, t.vis_count, D_MAX, d_small=D_SMALL,
                                   big_fraction=BIG_FRACTION)
     assert int(t_over) == int(j_over) > 0

@@ -26,6 +26,14 @@
 //              dcb = dpower (-dx dy), dcc = dpower (-dy^2 / 2), dop = dalpha e.
 // The rows stay f32 (the JAX package rounds them to f16 pairs, :695-720).
 //
+// With per-pass cotangents of final T (`gte_pass` [NP, T, 256], the
+// partition engine's), 2 NP more rows follow: per pass i, sum|dmx_pix_i| and
+// sum|dmy_pix_i| of the gradient of pass i alone,
+//   dalpha_i = T cg_i - (sfx_i + gt_eff_i final_T) / (1 - alpha),
+// the per-axis abs channels the JAX partition engine sums over its one K2
+// launch per pass (rasterize_pallas.py:2426-2438). The other rows are those
+// of the summed gradient, computed as without them.
+//
 // Design (a simple first version): one 256-thread block per 16x16 tile, one
 // thread per pixel. The tile's entries are staged through shared memory in
 // chunks of 64 (thread i loads entry i of every table row: coalesced). Each
@@ -59,17 +67,19 @@ constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTEps = 1e-4f;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int NP>
+template <int NP, bool PASS_ABS>
 __global__ void __launch_bounds__(kPix)
 blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
                  const int* __restrict__ starts, const int* __restrict__ counts,
                  int grid_x, int num_tiles,
                  const float* __restrict__ gcol, const float* __restrict__ gte,
+                 const float* __restrict__ gte_pass,
                  const float* __restrict__ colors, const float* __restrict__ final_t,
                  float sx, float sy,
                  float* __restrict__ grads, long long grad_stride) {
   constexpr int W = 6 + 3 * NP;
-  constexpr int G = 7 + 3 * NP;
+  constexpr int G0 = 7 + 3 * NP;                   // the summed gradient's rows
+  constexpr int G = G0 + (PASS_ABS ? 2 * NP : 0);
   __shared__ float ent[W][kChunk];
   __shared__ float part[kWarps][G][kChunk];
 
@@ -100,6 +110,12 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
     prefix[i] = 0.0f;
   }
   const float gte_ft = gte[pix] * final_t[pix];
+  float gte_ft_pass[NP];
+  if constexpr (PASS_ABS) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      gte_ft_pass[i] = gte_pass[static_cast<long long>(i) * num_tiles * kPix + pix] * final_t[pix];
+  }
 
   float T = 1.0f;
   bool done = false;
@@ -137,6 +153,7 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
               contrib = true;
               const float w = alpha * T;
               float cg_sum = 0.0f, sfx_sum = 0.0f;
+              float cg_pass[NP], sfx_pass[NP];
 #pragma unroll
               for (int i = 0; i < NP; ++i) {
                 const float cg = gc[3 * i + 0] * ent[6 + 3 * i + 0][k]
@@ -145,6 +162,8 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
                 prefix[i] += w * cg;
                 sfx_sum += out_dot_g[i] - prefix[i];
                 cg_sum += cg;
+                cg_pass[i] = cg;
+                sfx_pass[i] = out_dot_g[i] - prefix[i];
                 v[7 + 3 * i + 0] = gc[3 * i + 0] * w;
                 v[7 + 3 * i + 1] = gc[3 * i + 1] * w;
                 v[7 + 3 * i + 2] = gc[3 * i + 2] * w;
@@ -161,6 +180,16 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
               v[4] = dpower * (-0.5f * dy * dy);
               v[5] = dalpha * e;
               v[6] = sx * fabsf(dmx) + sy * fabsf(dmy);
+              if constexpr (PASS_ABS) {
+#pragma unroll
+                for (int i = 0; i < NP; ++i) {
+                  float da = T * cg_pass[i] - (sfx_pass[i] + gte_ft_pass[i]) / (1.0f - alpha);
+                  if (alpha >= kAlphaMax) da = 0.0f;
+                  const float dp = da * alpha;
+                  v[G0 + 2 * i + 0] = fabsf(dp * (-(ca * dx + cb * dy)));
+                  v[G0 + 2 * i + 1] = fabsf(dp * (-(cc * dy + cb * dx)));
+                }
+              }
               T = test_t;
             }
           }
@@ -193,36 +222,48 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
   }
 }
 
+template <int NP, bool PASS_ABS>
+void launch(const float* table, long long row_stride, const int* starts, const int* counts,
+            int num_tiles, int grid_x, const float* gcol, const float* gte,
+            const float* gte_pass, const float* colors, const float* final_t, float sx,
+            float sy, float* grads, long long grad_stride, cudaStream_t s) {
+  blend_bwd_kernel<NP, PASS_ABS><<<num_tiles, kPix, 0, s>>>(
+      table, row_stride, starts, counts, grid_x, num_tiles, gcol, gte, gte_pass, colors,
+      final_t, sx, sy, grads, grad_stride);
+}
+
 }  // namespace
 
 extern "C" int wg_blend_bwd(const float* table, long long row_stride,
                             const int* starts, const int* counts,
                             int num_tiles, int grid_x, int n_passes,
-                            const float* gcol, const float* gte,
+                            const float* gcol, const float* gte, const float* gte_pass,
                             const float* colors, const float* final_t,
                             float sx, float sy,
                             float* grads, long long grad_stride,
                             void* stream) {
   if (num_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_passes) {
-    case 1:
-      blend_bwd_kernel<1><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, grid_x, num_tiles, gcol, gte, colors,
-          final_t, sx, sy, grads, grad_stride);
-      break;
-    case 2:
-      blend_bwd_kernel<2><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, grid_x, num_tiles, gcol, gte, colors,
-          final_t, sx, sy, grads, grad_stride);
-      break;
-    case 3:
-      blend_bwd_kernel<3><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, grid_x, num_tiles, gcol, gte, colors,
-          final_t, sx, sy, grads, grad_stride);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (gte_pass == nullptr) {
+    switch (n_passes) {
+      case 1: launch<1, false>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
+                               gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
+      case 2: launch<2, false>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
+                               gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
+      case 3: launch<3, false>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
+                               gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (n_passes) {
+      case 1: launch<1, true>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
+                              gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
+      case 2: launch<2, true>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
+                              gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
+      case 3: launch<3, true>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
+                              gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,13 +13,11 @@
 // matmul prefix; here each thread runs the sequential recurrence, which is
 // the same function up to rounding.
 //
-// Design (a simple first version): one 256-thread block per 16x16 tile, one
-// thread per pixel. The tile's entries [start, start+count) of the
-// attribute-row table [6 + 3 NP, row_stride] are staged through shared
-// memory in chunks of 256 (thread i loads entry i of every row: coalesced),
-// then every thread walks the chunk from shared memory (a broadcast read).
-// The early exit is a block vote, __syncthreads_count(done) == 256, after
-// each chunk.
+// Design (a simple first version): the tile walk of blend_common.cuh (one
+// 256-thread block per 16x16 tile, one thread per pixel, entries of the
+// attribute-row table [6 + 3 NP, row_stride] staged through shared memory
+// in chunks of 256, a block vote for the early exit), accumulating each
+// pass's color in registers.
 //
 // Bound on this card: the walk is ~20 FP32 operations and one exp per
 // (pixel, entry) pair against ~(6 + 3 NP) * 4 bytes per entry read once per
@@ -35,16 +33,12 @@
 // The launch goes on the caller's stream; the kernel allocates nothing and
 // does not synchronize with the host. wg_blend_fwd returns cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
-constexpr int kChunk = 256;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using wg::kChunk;
+using wg::kPix;
 
 template <int NP>
 __global__ void __launch_bounds__(kPix)
@@ -59,62 +53,21 @@ blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const int start = starts[t];
-  const int count = counts[t];
-  const float px = static_cast<float>((t % grid_x) * kTile + p % kTile);
-  const float py = static_cast<float>((t / grid_x) * kTile + p / kTile);
-  if (p == 0) last_stop = -1;
-
-  float T = 1.0f;
   float acc[3 * NP];
 #pragma unroll
   for (int i = 0; i < 3 * NP; ++i) acc[i] = 0.0f;
-  bool done = false;
-  int stop_at = -1;
-  bool all_done = false;
 
-  // `all_done`, `base` and `count` are uniform over the block, so every
-  // thread reaches the same barriers
-  for (int base = 0; base < count && !all_done; base += kChunk) {
-    const int n = min(kChunk, count - base);
-    __syncthreads();  // the previous chunk's readers are done with `ent`
-    if (p < n) {
-      const float* src = table + static_cast<long long>(start) + base + p;
-#pragma unroll
-      for (int r = 0; r < W; ++r) ent[r][p] = src[r * row_stride];
-    }
-    __syncthreads();
-    if (!done) {
-      for (int k = 0; k < n; ++k) {
-        const float dx = ent[0][k] - px;
-        const float dy = ent[1][k] - py;
-        const float power =
-            -0.5f * (ent[2][k] * dx * dx + ent[4][k] * dy * dy) - ent[3][k] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(kAlphaMax, ent[5][k] * expf(power));
-        if (alpha < kAlphaMin) continue;
-        const float test_t = T * (1.0f - alpha);
-        if (test_t < kTEps) {
-          done = true;
-          stop_at = base + k;
-          break;
-        }
-        const float w = alpha * T;
+  const wg::WalkEnd end = wg::walk_tile<W>(
+      table, row_stride, starts[t], counts[t], wg::pixel_x(t, p, grid_x),
+      wg::pixel_y(t, p, grid_x), ent, &last_stop, [&](float w, int k) {
 #pragma unroll
         for (int i = 0; i < NP; ++i) {
           acc[3 * i + 0] += w * ent[6 + 3 * i + 0][k];
           acc[3 * i + 1] += w * ent[6 + 3 * i + 1][k];
           acc[3 * i + 2] += w * ent[6 + 3 * i + 2][k];
         }
-        T = test_t;
-      }
-    }
-    all_done = __syncthreads_count(done) == kPix;
-  }
-
-  if (all_done) atomicMax(&last_stop, stop_at);
-  __syncthreads();
-  if (p == 0) walked[t] = all_done ? last_stop + 1 : count;
+      });
+  if (p == 0) walked[t] = end.walked;
 
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
@@ -123,7 +76,7 @@ blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
     out[1] = acc[3 * i + 1];
     out[2] = acc[3 * i + 2];
   }
-  final_t[static_cast<long long>(t) * kPix + p] = T;
+  final_t[static_cast<long long>(t) * kPix + p] = end.T;
 }
 
 }  // namespace

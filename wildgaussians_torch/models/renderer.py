@@ -18,7 +18,7 @@ from ..config import Config
 from ..ops.blend import rasterize_multi
 from ..ops.gaussians import compute_cov3d, preprocess
 from ..ops.partition_engine import engine_d_small
-from ..ops.rasterize import overflow_count
+from ..ops.rasterize import engine_overflow_count
 from ..ops.rasterize_tiled import make_grid
 from ..ops.sh import eval_sh_switch
 from ..spans import span
@@ -143,7 +143,7 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
              if "depth" in results else None)
 
     num_rendered = torch.sum(torch.clamp_max(pre.tiles_touched, max_tiles_per_gaussian))
-    overflow = overflow_count(pre.tiles_touched, blend_aux.get("vis_count"),
+    overflow = engine_overflow_count(pre.tiles_touched, blend_aux.get("vis_count"),
                               max_tiles_per_gaussian, d_small=d_small,
                               big_fraction=big_fraction, binning=config.pallas_binning,
                               valid=pre.valid)

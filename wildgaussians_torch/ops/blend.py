@@ -120,12 +120,30 @@ def blend_forward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
             # an f32 matmul; TF32 stays off (torch's default for matmul)
             colors[i, t0:t1] = torch.einsum("bpl,cbl->bpc", w, col)
         final_t[t0:t1] = torch.exp(torch.where(contrib, b.lg, 0.0).sum(-1))
-        stop = b.use & ~alive
-        all_stopped = stop.any(-1).all(-1)
-        first_stop = torch.argmax(stop.to(torch.uint8), dim=-1)          # [B, P]
-        walked[t0:t1] = torch.where(all_stopped, first_stop.max(-1).values + 1,
-                                    counts[t0:t1]).to(torch.int32)
+        walked[t0:t1] = _plain_walked(b, counts)
     return colors, final_t, walked
+
+
+def _plain_walked(b: _PlainBatch, counts: torch.Tensor) -> torch.Tensor:
+    """The entries each tile of the batch needs (K1's `walked`): up to and
+    including the last pixel's crossing entry if every pixel stops, else
+    all of its entries."""
+    stop = b.use & ~(b.t_inc >= T_EPS)
+    all_stopped = stop.any(-1).all(-1)
+    first_stop = torch.argmax(stop.to(torch.uint8), dim=-1)              # [B, P]
+    return torch.where(all_stopped, first_stop.max(-1).values + 1,
+                       counts[b.t0:b.t1]).to(torch.int32)
+
+
+def blend_walked_plain(table: torch.Tensor, tile_starts: torch.Tensor,
+                       tile_counts: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """K1's `walked` [T] int32 alone, from the same batched walk as
+    blend_forward_plain (no colors)."""
+    walked = torch.zeros((grid.num_tiles,), dtype=torch.int32, device=table.device)
+    counts = tile_counts.long()
+    for b in _plain_batches(table, tile_starts, tile_counts, grid):
+        walked[b.t0:b.t1] = _plain_walked(b, counts)
+    return walked
 
 
 def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
@@ -210,16 +228,18 @@ def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
 blend_forward.launches = 0
 
 
-def grad_rows(n_passes: int) -> int:
+def grad_rows(n_passes: int, pass_abs: bool = False) -> int:
     """Per-entry gradient rows of the blend backward: dmx, dmy, dca, dcb,
-    dcc, dop, the fused NDC abs channel, then r, g, b per color pass."""
-    return 7 + 3 * n_passes
+    dcc, dop, the fused NDC abs channel, then r, g, b per color pass; with
+    `pass_abs`, then sum|dmx_pix|, sum|dmy_pix| of each pass's own gradient."""
+    return 7 + 3 * n_passes + (2 * n_passes if pass_abs else 0)
 
 
 def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
                          tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
                          gcol: torch.Tensor, gte: torch.Tensor, colors: torch.Tensor,
-                         final_t: torch.Tensor, ndc_scale: Tuple[float, float]) -> torch.Tensor:
+                         final_t: torch.Tensor, ndc_scale: Tuple[float, float],
+                         gte_pass: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch K2, in the JAX kernel's log-space form (K1's plain
     quantities, `_plain_batches`).
 
@@ -231,10 +251,13 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
     cumsum of w cg, sfx = out . gc - prefix; dalpha = T_at sum(cg) -
     (sum(sfx) + gte final_T) / (1 - alpha), zeroed where alpha is capped.
     Returns [7 + 3 n_passes, N] rows summed over each tile's pixels, zero
-    for every entry no pixel reaches."""
+    for every entry no pixel reaches. With gte_pass [n_passes, T, 256] (each
+    pass's own gt_eff, which sum to gte), 2 n_passes rows follow: per pass,
+    sum|dmx_pix| and sum|dmy_pix| of the dalpha of that pass alone (T cg -
+    (sfx + gte_pass final_T) / (1 - alpha)), unscaled."""
     sx, sy = float(ndc_scale[0]), float(ndc_scale[1])
-    out = torch.zeros((grad_rows(n_passes), table.shape[1]), dtype=torch.float32,
-                      device=table.device)
+    out = torch.zeros((grad_rows(n_passes, gte_pass is not None), table.shape[1]),
+                      dtype=torch.float32, device=table.device)
     starts = tile_starts.long()
     for b in _plain_batches(table, tile_starts, tile_counts, grid):
         t0, t1 = b.t0, b.t1
@@ -244,7 +267,7 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
         w = torch.where(contrib, b.alpha * t_at, 0.0)                   # [B, P, L]
         cg_sum = torch.zeros_like(w)
         sfx_sum = torch.zeros_like(w)
-        dcols = []
+        dcols, pass_terms = [], []
         for i in range(n_passes):
             gc = gcol[i, t0:t1]                                          # [B, P, 3]
             col = b.ent[6 + 3 * i:9 + 3 * i]                             # [3, B, L]
@@ -254,13 +277,24 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
             cg_sum = cg_sum + cg
             sfx_sum = sfx_sum + (out_dot_g[..., None] - prefix)
             dcols.append(torch.einsum("bpc,bpl->cbl", gc, w))
-        gte_ft = (gte[t0:t1] * final_t[t0:t1])[..., None]
-        dalpha = torch.where(contrib, t_at * cg_sum - (sfx_sum + gte_ft) * rinv, 0.0)
-        dalpha = torch.where(b.alpha >= ALPHA_MAX, 0.0, dalpha)
+            pass_terms.append((cg, out_dot_g[..., None] - prefix))
         ca, cb, cc = (b.ent[r][:, None, :] for r in (2, 3, 4))
-        dpower = dalpha * b.alpha
-        dmx_pix = dpower * (-(ca * b.dx + cb * b.dy))
-        dmy_pix = dpower * (-(cc * b.dy + cb * b.dx))
+
+        def pixel_mean_grads(cg, sfx, gte_t):
+            """dalpha and the per-pixel mean gradients of one cotangent."""
+            gte_ft = (gte_t[t0:t1] * final_t[t0:t1])[..., None]
+            dalpha = torch.where(contrib, t_at * cg - (sfx + gte_ft) * rinv, 0.0)
+            dalpha = torch.where(b.alpha >= ALPHA_MAX, 0.0, dalpha)
+            dpower = dalpha * b.alpha
+            return (dalpha, dpower, dpower * (-(ca * b.dx + cb * b.dy)),
+                    dpower * (-(cc * b.dy + cb * b.dx)))
+
+        dalpha, dpower, dmx_pix, dmy_pix = pixel_mean_grads(cg_sum, sfx_sum, gte)
+        pass_abs = []
+        if gte_pass is not None:
+            for i, (cg, sfx) in enumerate(pass_terms):
+                _da, _dp, mx, my = pixel_mean_grads(cg, sfx, gte_pass[i])
+                pass_abs += [mx.abs().sum(1), my.abs().sum(1)]
         rows = torch.stack(
             [dmx_pix.sum(1), dmy_pix.sum(1),
              (dpower * (-0.5 * b.dx * b.dx)).sum(1),
@@ -268,7 +302,7 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
              (dpower * (-0.5 * b.dy * b.dy)).sum(1),
              (dalpha * b.e).sum(1),
              sx * dmx_pix.abs().sum(1) + sy * dmy_pix.abs().sum(1)]
-            + [dc[c] for dc in dcols for c in range(3)])                 # [G, B, L]
+            + [dc[c] for dc in dcols for c in range(3)] + pass_abs)      # [G, B, L]
         pos = torch.arange(rows.shape[-1], device=table.device)
         idx = starts[t0:t1, None] + pos[None, :]
         out[:, idx[b.em]] = rows[:, b.em]
@@ -278,6 +312,7 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p,
                  ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong,
                  ctypes.c_void_p]
 
@@ -299,14 +334,16 @@ def _check_f32(name, x, shape, device):
 def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
                    tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
                    gcol: torch.Tensor, gte: torch.Tensor, colors: torch.Tensor,
-                   final_t: torch.Tensor, ndc_scale: Tuple[float, float]) -> torch.Tensor:
-    """K2: the per-entry gradient rows [7 + 3 n_passes, N] of the blend
-    (see blend_backward_plain for the arguments). A CPU table runs the
-    plain version; a CUDA table launches the kernel in
-    `csrc/blend_bwd.cu` and adds one to `blend_backward.launches`."""
+                   final_t: torch.Tensor, ndc_scale: Tuple[float, float],
+                   gte_pass: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: the per-entry gradient rows [7 + 3 n_passes, N] of the blend, and
+    with gte_pass the 2 n_passes per-pass abs rows after them (see
+    blend_backward_plain for the arguments). A CPU table runs the plain
+    version; a CUDA table launches the kernel in `csrc/blend_bwd.cu` and
+    adds one to `blend_backward.launches`."""
     if table.device.type == "cpu":
         return blend_backward_plain(table, tile_starts, tile_counts, grid, n_passes,
-                                    gcol, gte, colors, final_t, ndc_scale)
+                                    gcol, gte, colors, final_t, ndc_scale, gte_pass)
     if table.device.type != "cuda":
         raise ValueError(f"blend_backward: unsupported device {table.device}")
     T = grid.num_tiles
@@ -325,14 +362,18 @@ def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
     _check_f32("colors", colors, (n_passes, T, P_PIX, 3), table.device)
     _check_f32("gte", gte, (T, P_PIX), table.device)
     _check_f32("final_t", final_t, (T, P_PIX), table.device)
-    grads = torch.zeros((grad_rows(n_passes), table.shape[1]), dtype=torch.float32,
-                        device=table.device)
+    if gte_pass is not None:
+        _check_f32("gte_pass", gte_pass, (n_passes, T, P_PIX), table.device)
+    grads = torch.zeros((grad_rows(n_passes, gte_pass is not None), table.shape[1]),
+                        dtype=torch.float32, device=table.device)
     fn = _bwd_kernel()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
                  tile_counts.data_ptr(), T, grid.grid_x, n_passes,
-                 gcol.data_ptr(), gte.data_ptr(), colors.data_ptr(), final_t.data_ptr(),
+                 gcol.data_ptr(), gte.data_ptr(),
+                 None if gte_pass is None else gte_pass.data_ptr(),
+                 colors.data_ptr(), final_t.data_ptr(),
                  float(ndc_scale[0]), float(ndc_scale[1]), grads.data_ptr(), grads.stride(0),
                  stream)
     if err != 0:
@@ -510,10 +551,15 @@ def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
     per-Gaussian `vis_count` and slot order `sorted_flat`, the partition
     engine its whole `entry_table` (key rows first) and the `presort_meta`,
     `rank_meta` (None without tier 2) and `tile_meta` of its partitions.
+    The sort engine's final_T image is one tensor shared by the passes; the
+    partition engine gives each pass its own (equal values).
 
     Differentiable (K2 and K3 in the backward; K6 too for "partition")
     wherever grad is enabled; `absgrad_hook` [N, 2] (zeros) then receives
-    the fused abs-gradient channel, scaled by `ndc_scale` = (0.5 W, 0.5 H).
+    the abs-gradient channels scaled by `ndc_scale` = (0.5 W, 0.5 H): the
+    sort engine's fused one in ch0 (sx sum|dmx| + sy sum|dmy| of the summed
+    gradient, ch1 = 0), the partition engine's per-axis ones summed over
+    the passes (ch0 = sum over passes of sx sum|dmx|, ch1 of sy sum|dmy|).
     Under `no_grad` nothing is kept for a backward."""
     check_binning(binning)
     if absgrad_hook is None:
@@ -531,6 +577,32 @@ def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
         torch.clamp_max(pre_tiles_touched, max_tiles_per_gaussian), pre_valid, grid,
         max_tiles_per_gaussian, d_small, big_fraction, ndc_scale, aux)
     with span("compose"):
-        T_img = tiles_to_image(final_t, grid)
-        images = [(tiles_to_image(color[i], grid), T_img) for i in range(len(colors_list))]
+        if final_t.dim() == 3:      # one final_T per pass (the partition engine)
+            images = [(tiles_to_image(color[i], grid), tiles_to_image(final_t[i], grid))
+                      for i in range(len(colors_list))]
+        else:
+            T_img = tiles_to_image(final_t, grid)
+            images = [(tiles_to_image(color[i], grid), T_img) for i in range(len(colors_list))]
     return images, aux
+
+
+def rasterize_pallas(mean2d, conic, opacity, colors, absgrad_hook, pre_depth, pre_rect_min,
+                     pre_rect_max, pre_tiles_touched, pre_valid, bg, *, grid: TileGrid,
+                     chunk: int = 256, max_tiles_per_gaussian: int = 16, d_small: int = 4,
+                     big_fraction: float = 0.16, binning: str = "sort", pack16: bool = True,
+                     ndc_scale: Optional[Tuple[float, float]] = None):
+    """Single-pass wrapper around rasterize_multi (the JAX package's
+    `rasterize_pallas`): returns (color [H,W,3], final_T [H,W]). `chunk`
+    must be the kernels' 256; `pack16` is accepted and has no effect (the
+    port's tables are always f32, the JAX package's `pack16=False`);
+    `ndc_scale` defaults to (1, 1)."""
+    if chunk != 256:
+        raise ValueError(f"the blend kernels walk 256-entry chunks, got chunk={chunk}")
+    del pack16
+    (out,), _aux = rasterize_multi(
+        mean2d, conic, opacity, [colors], pre_depth, pre_rect_min, pre_rect_max,
+        pre_tiles_touched, pre_valid, bg, grid=grid,
+        max_tiles_per_gaussian=max_tiles_per_gaussian, d_small=d_small,
+        big_fraction=big_fraction, binning=binning, absgrad_hook=absgrad_hook,
+        ndc_scale=(1.0, 1.0) if ndc_scale is None else tuple(float(x) for x in ndc_scale))
+    return out

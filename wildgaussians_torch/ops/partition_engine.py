@@ -20,10 +20,11 @@ and sorts, this one:
      order;
   4. blends the tile segments with K1 over the table's attribute rows.
 
-The backward runs K2 on the same rows, sends the per-entry rows back
-through the inverse tile and rank partitions (K6), sums them per rank
-(tier 1 over d1 slots, tier 2 per pool slot merged at `big_list` by K3),
-and sends the rank sums back through the inverse presort.
+The backward runs K2 on the same rows (with its per-pass abs rows), sends
+the per-entry rows back through the inverse tile and rank partitions (K6),
+sums them per rank (tier 1 over d1 slots, tier 2 per pool slot merged at
+`big_list` by K3), and sends the rank sums back through the inverse
+presort.
 
 The radix passes are K5 and K6 (ops/partition.py). The tables are f32
 throughout: the JAX engine's K2 rows are plain f32 here as well
@@ -218,16 +219,19 @@ class PartitionBlend(torch.autograd.Function):
     Forward: build_partition_table and one fused K1 launch over the entry
     table's attribute rows (the JAX engine calls K1 once per pass; the
     passes share alpha and T, so one fused launch computes the same);
-    returns the colors with the background [n_passes, T, 256, 3] and final_T
-    [T, 256]. Backward: the cotangent pack, K2, dbg, K6 through the tile and
-    rank partitions, the rank sums with K3, K6 through the presort.
+    returns the colors with the background [n_passes, T, 256, 3] and each
+    pass's final_T [n_passes, T, 256] (equal values; each pass's own
+    cotangent reaches the backward, as in the JAX engine). Backward: the
+    cotangent pack, K2 with its per-pass abs rows, dbg, K6 through the tile
+    and rank partitions, the rank sums with K3, K6 through the presort.
 
-    The abs-gradient hook [N, 2] receives the fused channel of K2 in ch0
-    (sx sum|dmx_pix| + sy sum|dmy_pix|, of the gradient summed over the
-    passes) and 0 in ch1, as the sort engine's. The JAX partition engine
-    returns per-axis channels pre-scaled by ndc and summed per pass
-    (sum over passes of the pass's own abs sums); for one pass the two have
-    the same g_abs.sum(-1), which is all the trainer reads."""
+    The abs-gradient hook [N, 2] receives the JAX partition engine's
+    per-axis channels (its K2 rows 9:11 summed over its one launch per pass,
+    rasterize_pallas.py:2426-2438), scaled by ndc_scale: ch0 = sum over
+    passes of sx sum|dmx_pix| of that pass's gradient alone, ch1 = the same
+    of sy sum|dmy_pix|. The sort engine keeps its fused channel instead;
+    for one pass both have the same g_abs.sum(-1), which is all the
+    trainer reads."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, colors_stack, absgrad_hook, bg, depth, rect_min,
@@ -251,7 +255,7 @@ class PartitionBlend(torch.autograd.Function):
         aux.update(table=attrs, entry_table=pt.table, tile_starts=pt.tile_starts,
                    tile_counts=pt.tile_counts, walked=walked, big_list=pt.big_list,
                    presort_meta=pt.presort, rank_meta=pt.rank, tile_meta=pt.tile)
-        return colors + final_t[..., None] * bg, final_t
+        return colors + final_t[..., None] * bg, final_t.repeat(n_passes, 1, 1)
 
     @staticmethod
     def backward(ctx, g_color, g_final_t):
@@ -259,10 +263,12 @@ class PartitionBlend(torch.autograd.Function):
         pmeta, rmeta, tmeta = ctx.metas
         sz, n = ctx.sizes, ctx.n
         n_passes = colors.shape[0]
-        G = blend.grad_rows(n_passes)
+        G0 = blend.grad_rows(n_passes)
+        G = G0 + 1                  # and the per-pass abs rows' two sums
         g_color = g_color.contiguous()
-        # cotangent pack: gt_eff summed over the passes (final_T is shared)
-        gte = (g_final_t + torch.einsum("itpc,c->tp", g_color, bg)).contiguous()
+        # cotangent pack: each pass's gt_eff, and their sum (final_T is shared)
+        gte_pass = (g_final_t + torch.einsum("itpc,c->itp", g_color, bg)).contiguous()
+        gte = gte_pass.sum(0)
         with span("blend_bwd_kernel"):
             # K2 allocates its rows zeroed and writes only the tile segments'
             # entries, so every other position (the dead bucket of empty
@@ -270,7 +276,15 @@ class PartitionBlend(torch.autograd.Function):
             # engine's live mask (rasterize_pallas.py:2535-2542)
             eg = blend.blend_backward(table[sz.nkey:sz.nkey + 6 + 3 * n_passes], starts, counts,
                                       ctx.grid, n_passes, g_color, gte, colors, final_t,
-                                      ctx.ndc_scale)
+                                      ctx.ndc_scale, gte_pass)
+            # the per-axis abs rows summed over the passes, in place of the
+            # fused row 6 (x) and of the first pass's x row (y): rows [0, G)
+            # then go back through the partitions
+            abs_x, abs_y = eg[G0::2].sum(0), eg[G0 + 1::2].sum(0)
+            eg[6].copy_(abs_x)
+            eg[G0].copy_(abs_y)
+            del abs_x, abs_y
+            eg = eg[:G]
         dbg = torch.einsum("itpc,tp->c", g_color, final_t)
         with span("unpartition"):
             slotg = radix_unpartition(eg, tmeta)
@@ -288,7 +302,8 @@ class PartitionBlend(torch.autograd.Function):
                 blend.tier2_merge(sums, big_list, bigs)
         with span("unpartition"):
             orig = radix_unpartition(sums, pmeta)[:, :n]
-        dabs = torch.stack([orig[6], torch.zeros_like(orig[6])], dim=-1)
+        sx, sy = ctx.ndc_scale
+        dabs = torch.stack([orig[6] * float(sx), orig[G0] * float(sy)], dim=-1)
         dcolors = torch.stack([orig[7 + 3 * i:10 + 3 * i].T for i in range(n_passes)])
         return (orig[0:2].T, orig[2:5].T, orig[5], dcolors, dabs, dbg,
                 None, None, None, None, None, None, None, None, None, None, None)

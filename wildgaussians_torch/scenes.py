@@ -3,6 +3,8 @@
 `make_surfel_scene` is the port's own copy of the converged-scene stand-in of
 the repository's `bench.py`: surface-attached, flat Gaussians with bimodal
 opacities, which saturate transmittance the way a trained scene does.
+`make_random_scene` is its copy of `bench.py`'s random scene, which never
+saturates.
 `surfel_state` turns such a scene into a full WildGaussians parameter state
 in the JAX package's checkpoint layout (random appearance weights drawn as
 the JAX package's `init_mlp` draws them), so that it loads through
@@ -17,6 +19,27 @@ from .config import Config, load_config_yaml
 from .io.convert import save_checkpoint
 from .models.appearance import init_mlp
 from .ops.sh import C0
+
+
+def make_random_scene(rng: np.random.Generator, n_gaussians: int, width: int, height: int,
+                      f: float):
+    """Uniform random Gaussians in the frustum of an identity camera with
+    focal length f: depths 3-30, footprints of 1-4 px sigma, opacities
+    0.4-0.99 and random colors. Their opacities never saturate
+    transmittance, so every tile walks its whole entry list. Returns
+    activated (xyz, scales, rotations, opacities, colors)."""
+    z = rng.uniform(3.0, 30.0, n_gaussians).astype(np.float32)
+    xy_extent = z[:, None] * np.array([width / (2 * f), height / (2 * f)], np.float32)
+    xyz = np.concatenate([
+        rng.uniform(-1, 1, (n_gaussians, 2)).astype(np.float32) * xy_extent,
+        z[:, None]], -1)
+    px_size = z / f  # world size of one pixel at that depth
+    scales = (px_size[:, None] * rng.uniform(0.8, 4.0, (n_gaussians, 3))).astype(np.float32)
+    q = rng.normal(size=(n_gaussians, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    opac = rng.uniform(0.4, 0.99, n_gaussians).astype(np.float32)
+    colors = rng.uniform(0, 1, (n_gaussians, 3)).astype(np.float32)
+    return xyz, scales, q, opac, colors
 
 
 def _quat_from_normal(rng, normal):
