@@ -54,8 +54,8 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      first step, and K5 and K6 timed on each of that step's calls beside
      their bounds, their plain versions and the PyTorch calls that compute
      the same function. K5 runs 15 times per request and per step, K6 15
-     times per step. The partition step's K2 also writes the per-pass abs
-     rows;
+     times per step. The partition step's K2 also writes the two per-pass
+     abs rows (each summed over the passes);
   8. "raster", the rasterizer API at bench.py's shapes (1.5M Gaussians,
      1280x720, d_max 10, d_small 4): rasterize_gaussians(backend="pallas")
      on the random and the surfel scene, 8 forward-only calls, 4 forward +
@@ -119,12 +119,22 @@ OPS_EVALUATED, OPS_EXP, OPS_USED, OPS_CONTRIB, OPS_PER_PASS = 12, 3 + SFU_COST, 
 K2_OPS_CONTRIB, K2_OPS_PER_PASS = 40 + 7, 13 + 3
 # with the per-pass abs rows (the partition engine), per contributing pair
 # and pass: that pass's dalpha with its divide, dpower, |dmx|, |dmy| and
-# their two pixel sums
+# their two sums
 K2_OPS_PASS_ABS = 20
+# K2 need not evaluate a pixel block's pairs with an entry whose alpha
+# reaches 1/255 on none of the block's pixels: its bound counts K1's
+# evaluated and exp work only on the blocks each entry reaches
+# (blend.blend_pair_counts with K2's 8x4 warp blocks), plus one test per
+# (block, entry): the least q = d^T C d on each of the block's 4 pixel rows
+# against 2 log(255 op) (12 operations a row; the log and the -cb/ca divide
+# at the SFU's cost, and 7 more)
+K2_WARP_BLOCK = (8, 4)
+K2_OPS_REACH = 4 * 12 + 2 * SFU_COST + 7
 # K2 against its plain version, per gradient row: max |error| over max |row|.
-# The kernel sums each entry's values over 256 pixels in another order (warp
-# shuffles, then 8 warp sums) and runs T as a product where the plain
-# version uses exp of a log-space prefix
+# The kernel sums each entry's values over 256 pixels in another order (a
+# butterfly over each warp's 32 pixels, then the warps' sums), runs T as a
+# product where the plain version uses exp of a log-space prefix, and
+# multiplies by a fast reciprocal of 1 - alpha where it divides
 TOL_ROW = 2e-3
 # one training step, card vs CPU, from the same state: per parameter, the
 # share of elements outside atol 5e-3 max|g| + rtol 5e-2 (a corner cull or a
@@ -882,8 +892,12 @@ def k2_bound_ms(inputs, walked, pairs):
     """Least time for K2's work on these inputs: the walked entries' table
     columns, the cotangent and forward packs read once and the walked
     entries' gradient rows written once over the memory rate, against the
-    operations the pairs need (K1's per kind, plus the gradient chain per
-    contributing pair) over the FP32 rate."""
+    operations the pairs need over the FP32 rate: the reach test per
+    (warp block, entry), K1's evaluated and exp work on the blocks each
+    entry reaches, its used work, and the gradient chain per contributing
+    pair (`pairs` from blend.blend_pair_counts with K2_WARP_BLOCK). Returns
+    (ms, bound_by, ms_all_pairs); ms_all_pairs counts the evaluated and exp
+    work on every pixel instead, with no reach test."""
     from wildgaussians_torch.ops import blend
     table, _s, tile_counts, _g, n_passes = inputs[:5]
     pass_abs = len(inputs) > 10 and inputs[10] is not None
@@ -892,11 +906,15 @@ def k2_bound_ms(inputs, walked, pairs):
     bytes_moved = (w * table.shape[0] * 4 + T * 8 + 2 * n_passes * T * 256 * 3 * 4
                    + (2 + (n_passes if pass_abs else 0)) * T * 256 * 4
                    + w * blend.grad_rows(n_passes, pass_abs) * 4)
-    ops = (pairs["evaluated"] * OPS_EVALUATED + pairs["exp"] * OPS_EXP + pairs["used"] * OPS_USED
-           + pairs["contributing"] * (K2_OPS_CONTRIB + K2_OPS_PER_PASS * n_passes
-                                      + (K2_OPS_PASS_ABS * n_passes if pass_abs else 0)))
+    rest = (pairs["used"] * OPS_USED
+            + pairs["contributing"] * (K2_OPS_CONTRIB + K2_OPS_PER_PASS * n_passes
+                                       + (K2_OPS_PASS_ABS * n_passes if pass_abs else 0)))
+    ops = (pairs["reach_tests"] * K2_OPS_REACH + pairs["evaluated_reached"] * OPS_EVALUATED
+           + pairs["exp_reached"] * OPS_EXP + rest)
+    ops_all = pairs["evaluated"] * OPS_EVALUATED + pairs["exp"] * OPS_EXP + rest
     t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"),
+            max(t_bytes, ops_all / PEAK_FP32 * 1e3))
 
 
 def k3_bound_ms(sums, big_list, bigs):
@@ -921,14 +939,15 @@ def hold_step(captured, radix, stages, label, errs):
     errs["blend_bwd"].append(check_k2(k2, label))
     errs["tier2_merge"].append(check_k3(sums, big_list, bigs, label))
     walked = blend.blend_forward(*fwd)[2]
-    pairs = blend.blend_pair_counts(*k2[:4])
+    pairs = blend.blend_pair_counts(*k2[:4], warp_block=K2_WARP_BLOCK)
     out = {}
     ms = time_cuda_ms(lambda: blend.blend_backward(*k2), iters=10)
     plain_ms = time_cuda_ms(lambda: blend.blend_backward_plain(*k2), iters=1, warmup=1)
-    bound, by = k2_bound_ms(k2, walked, pairs)
+    bound, by, bound_all_pairs = k2_bound_ms(k2, walked, pairs)
     out["blend_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
     emit({"phase": "timing", "kernel": "blend_bwd", "at": label, "passes": k2[4], "pairs": pairs,
-          "binned_entries": int(k2[1][-1]), "walked_entries": int(walked.sum()), **out["blend_bwd"]})
+          "binned_entries": int(k2[1][-1]), "walked_entries": int(walked.sum()),
+          "bound_ms_all_pairs": bound_all_pairs, **out["blend_bwd"]})
     scratch = sums.clone()
     ms = time_cuda_ms(lambda: blend.tier2_merge(scratch, big_list, bigs), iters=20)
     plain_ms = time_cuda_ms(lambda: blend.tier2_merge_plain(scratch, big_list, bigs), iters=5)
@@ -949,20 +968,19 @@ def hold_step(captured, radix, stages, label, errs):
     return out
 
 
-def radix_bounds(name, args, kwargs):
-    """Least time of one K5 or K6 call on these arguments: bytes. K5 reads
+def radix_bytes(name, args, kwargs):
+    """The bytes one K5 or K6 call must move on these arguments: K5 reads
     the table's rows (its key row from `keys`) once and writes the output
     once; K6 reads the key row, the gradient columns of the entries that
-    are not holes, and writes its output once."""
+    are not holes, and writes its output once. Over the memory rate, the
+    call's bound."""
     if name == "radix_pass":
         table, _keys = args[:2]
         rows, R = table.shape
-        bytes_moved = rows * R * 4 + rows * kwargs["R_out"] * 4
-    else:
-        gin, keys = args[:2]
-        real = int((keys < float(kwargs["sentinel"])).sum())
-        bytes_moved = keys.shape[0] * 4 + gin.shape[0] * (real + keys.shape[0]) * 4
-    return bytes_moved / PEAK_BYTES * 1e3
+        return rows * R * 4 + rows * kwargs["R_out"] * 4
+    gin, keys = args[:2]
+    real = int((keys < float(kwargs["sentinel"])).sum())
+    return keys.shape[0] * 4 + gin.shape[0] * (real + keys.shape[0]) * 4
 
 
 def radix_library(name, args, kwargs):
@@ -984,18 +1002,20 @@ def radix_library(name, args, kwargs):
 def time_radix(radix, stages, label):
     """K5 and K6 on every call a training step made (`radix`, radix_calls):
     ms per call beside its bound, its plain version and the library call,
-    and the sums over the step."""
+    and the TB/s it moved (radix_bytes over its ms); the sums over the
+    step."""
     out = {}
     for name in ("radix_pass", "radix_unpass"):
         k = kernel_by_name(name)
         rows = []
         for i, (args, kwargs) in enumerate(radix[name]):
+            ms = time_cuda_ms(lambda: k["wrapper"](*args, **kwargs), iters=5)
+            moved = radix_bytes(name, args, kwargs)
             rows.append(dict(
-                stage=stages[name][i], p=args[2], shape=list(args[0].shape),
-                ms=time_cuda_ms(lambda: k["wrapper"](*args, **kwargs), iters=5),
+                stage=stages[name][i], p=args[2], shape=list(args[0].shape), ms=ms,
                 plain_ms=time_cuda_ms(lambda: k["plain"](*args, **kwargs), iters=1, warmup=1),
                 library_ms=time_cuda_ms(radix_library(name, args, kwargs), iters=3, warmup=1),
-                bound_ms=radix_bounds(name, args, kwargs)))
+                bound_ms=moved / PEAK_BYTES * 1e3, tb_per_s=moved / (ms * 1e-3) / 1e12))
         sums = {key: float(sum(r[key] for r in rows))
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         out[name] = dict(**sums, bound_by="bytes", per="training step",

@@ -63,6 +63,17 @@ def test_blend_wrapper_on_cpu():
     assert n == {"evaluated": 256 * 5, "exp": 256 * 4, "used": 256 * 3, "contributing": 256 * 2}
     assert int(tblend.blend_forward(table, starts, counts, grid, 1)[2][0]) == 5
 
+    # K2's bound, with K2's 8x4 pixel blocks: an entry's pairs count only
+    # on the blocks it reaches; a narrow entry at (2, 0.5) reaches block 0
+    # alone, a wide faint one all eight (no pixel stops)
+    table = torch.tensor([[2.0, 7.5], [0.5, 7.5], [1.0, 1e-4], [0.0, 0.0], [1.0, 1e-4],
+                          [0.99, 0.5], [1.0, 1.0], [1.0, 1.0], [1.0, 1.0]])
+    starts = torch.tensor([0, 2, 2], dtype=torch.int32)
+    counts = torch.tensor([2, 0], dtype=torch.int32)
+    n = tblend.blend_pair_counts(table, starts, counts, grid, warp_block=(8, 4))
+    assert (n["evaluated"], n["exp"]) == (2 * 256, 2 * 256)
+    assert (n["reach_tests"], n["evaluated_reached"], n["exp_reached"]) == (16, 32 + 256, 32 + 256)
+
     # a tensor on neither the CPU nor a card is refused
     with pytest.raises(ValueError, match="device"):
         tblend.blend_forward(table.to("meta"), starts, counts, grid, 1)

@@ -1,11 +1,13 @@
 """The CUDA kernels against their plain versions on the card: K1 (the blend
 forward), K2 (its backward, per gradient row within 2e-3 of the row's
 largest value: the kernel sums each entry over 256 pixels in another order;
-with and without its per-pass abs rows, whose summed rows stay bit for bit
-those without them), K3 (the tier-2 merge, exactly), K4 (the planar static
-blend: as K1 against its plain version, and equal to K1 bit for bit with
-bg = 0), K5 and K6 (a radix pass and its inverse: they only move values,
-so exactly, pass by pass), P1 (the early-exit probe: its walked counts
+with and without its two abs rows, whose summed rows stay bit for bit
+those without them; on a surfel table and on a hand-made one with a long
+tile, a mid-chunk exit and the alpha cap), K3 (the tier-2 merge, exactly),
+K4 (the planar static blend: as K1 against its plain version, and equal to
+K1 bit for bit with bg = 0), K5 and K6 (a radix pass and its inverse: they
+only move values, so exactly, pass by pass, also at B = 2, 4, 16, 32 on
+key patterns that set K5's runs), P1 (the early-exit probe: its walked counts
 equal to K1's, its chunk counts exactly) and P2 (the run scatter, exactly,
 on the probe's five configurations, scaled down). This file
 imports neither JAX nor the test helpers, so that it also runs on a machine
@@ -57,31 +59,8 @@ def _surfel_table(device, n, width, height, n_passes, seed=0):
 
 def _check_backward(st, grid, n_passes, dev):
     """K2 on random cotangents and K1's outputs, then K3 on the slot sums."""
+    rows = _check_k2(st.table, st.tile_starts, st.tile_counts, grid, n_passes, dev)
     g = torch.Generator(device=dev).manual_seed(n_passes)
-    colors, final_t, _ = tblend.blend_forward(st.table, st.tile_starts, st.tile_counts, grid,
-                                              n_passes)
-    gcol = torch.randn(colors.shape, generator=g, device=dev) * 1e-3
-    gte = torch.randn(final_t.shape, generator=g, device=dev) * 1e-3
-    args = (st.table, st.tile_starts, st.tile_counts, grid, n_passes, gcol, gte, colors,
-            final_t, (128.0, 96.0))
-    before = tblend.blend_backward.launches
-    rows = tblend.blend_backward(*args)
-    torch.cuda.synchronize()
-    assert tblend.blend_backward.launches == before + 1 and rows.device.type == "cuda"
-    plain = tblend.blend_backward_plain(*args)
-    rel = (rows - plain).abs().amax(1) / torch.clamp_min(plain.abs().amax(1), 1e-30)
-    assert torch.isfinite(rows).all() and rel.max().item() <= 2e-3, f"{n_passes} passes: {rel}"
-    # the per-pass abs rows: each pass's own gt_eff, summing to gte
-    gte_pass = torch.randn((n_passes,) + final_t.shape, generator=g, device=dev) * 1e-3
-    gte_pass[-1] = gte - gte_pass[:-1].sum(0)
-    with_abs = tblend.blend_backward(*args, gte_pass.contiguous())
-    plain_abs = tblend.blend_backward_plain(*args, gte_pass)
-    torch.cuda.synchronize()
-    assert with_abs.shape[0] == tblend.grad_rows(n_passes, True)
-    assert torch.equal(with_abs[:rows.shape[0]], rows), "the summed rows must not move"
-    rel = (with_abs - plain_abs).abs().amax(1) / torch.clamp_min(plain_abs.abs().amax(1), 1e-30)
-    assert rel.max().item() <= 2e-3, f"{n_passes} passes, per-pass abs rows: {rel}"
-
     n = st.vis_count.shape[0]
     sums = torch.randn((rows.shape[0], n), generator=g, device=dev)
     bigs = torch.randn((rows.shape[0], st.big_list.shape[0]), generator=g, device=dev)
@@ -93,10 +72,74 @@ def _check_backward(st, grid, n_passes, dev):
     assert torch.equal(got, tblend.tier2_merge_plain(sums.clone(), st.big_list, bigs))
 
 
+def _check_k2(table, tile_starts, tile_counts, grid, n_passes, dev):
+    """K2 against its plain version on random cotangents and K1's outputs,
+    per row within 2e-3 of the row's largest value; with each pass's own
+    gt_eff (summing to gte) its two abs rows as well, and its summed rows
+    bit for bit those without them. Returns the rows without them."""
+    g = torch.Generator(device=dev).manual_seed(n_passes)
+    colors, final_t, _ = tblend.blend_forward(table, tile_starts, tile_counts, grid, n_passes)
+    gcol = torch.randn(colors.shape, generator=g, device=dev) * 1e-3
+    gte = torch.randn(final_t.shape, generator=g, device=dev) * 1e-3
+    args = (table, tile_starts, tile_counts, grid, n_passes, gcol, gte, colors,
+            final_t, (0.5 * grid.width, 0.5 * grid.height))
+    before = tblend.blend_backward.launches
+    rows = tblend.blend_backward(*args)
+    torch.cuda.synchronize()
+    assert tblend.blend_backward.launches == before + 1 and rows.device.type == "cuda"
+    plain = tblend.blend_backward_plain(*args)
+    rel = (rows - plain).abs().amax(1) / torch.clamp_min(plain.abs().amax(1), 1e-30)
+    assert torch.isfinite(rows).all() and rel.max().item() <= 2e-3, f"{n_passes} passes: {rel}"
+    gte_pass = torch.randn((n_passes,) + final_t.shape, generator=g, device=dev) * 1e-3
+    gte_pass[-1] = gte - gte_pass[:-1].sum(0)
+    with_abs = tblend.blend_backward(*args, gte_pass.contiguous())
+    plain_abs = tblend.blend_backward_plain(*args, gte_pass)
+    torch.cuda.synchronize()
+    assert with_abs.shape[0] == tblend.grad_rows(n_passes, True) == rows.shape[0] + 2
+    assert torch.equal(with_abs[:rows.shape[0]], rows), "the summed rows must not move"
+    rel = (with_abs - plain_abs).abs().amax(1) / torch.clamp_min(plain_abs.abs().amax(1), 1e-30)
+    assert rel.max().item() <= 2e-3, f"{n_passes} passes, abs rows: {rel}"
+    return rows
+
+
+def _check_k2_edges(dev):
+    """K2 on a hand-made 32x32 table of four tiles: tile 0 holds 200 entries
+    (over three of K2's 64-entry chunks), among them one at the 0.99 alpha
+    cap on the pixels around (7, 7), and all its pixels stop inside its
+    third chunk (a mid-chunk early exit); tile 1 holds 30, tile 2 none and
+    tile 3 100 faint entries that never stop a pixel."""
+    rng = np.random.default_rng(11)
+    grid = make_grid(32, 32, 16)
+    counts = [200, 30, 0, 100]
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    cols = []
+    for t, (n, op, sigma) in enumerate(zip(counts, (0.065, 0.3, 0.0, 0.02), (100, 4, 1, 3))):
+        ox, oy = 16 * (t % 2), 16 * (t // 2)
+        x, y = ox + rng.uniform(0, 16, n), oy + rng.uniform(0, 16, n)
+        a = np.full(n, 1.0 / sigma ** 2)
+        opac = np.full(n, op)
+        if t == 0:
+            x[:4], y[:4] = 7.5, 7.5
+            opac[:3], a[:4] = 0.1, 1.0 / 64
+            x[3], y[3], opac[3] = 7.0, 7.0, 1.0        # alpha = min(0.99, 1.0) at (7, 7)
+        cols.append(np.stack([x, y, a, np.zeros(n), a, opac]))
+    geo = np.concatenate(cols, 1).astype(np.float32)
+    st = torch.tensor(starts, device=dev)
+    ct = torch.tensor(np.asarray(counts, np.int32), device=dev)
+    for n_passes in (1, 2, 3):
+        rgb = rng.uniform(0, 1, (3 * n_passes, geo.shape[1])).astype(np.float32)
+        table = torch.tensor(np.concatenate([geo, rgb]), device=dev)
+        walked = tblend.blend_forward(table, st, ct, grid, n_passes)[2].tolist()
+        assert 128 < walked[0] < 192 and walked[0] % 64, walked    # exits in its third chunk
+        assert walked[3] == counts[3], walked
+        _check_k2(table, st, ct, grid, n_passes, dev)
+
+
 def _check_radix(dev):
     """K5 and K6 against their plain versions, pass by pass, on tables with
     invalid keys and a pure-sentinel stretch: a small base, the engine's
-    tile partition (key row 1, a tail) and its depth presort."""
+    tile partition (key row 1, a tail) and its depth presort; then on the
+    key patterns of _radix_patterns at B = 2, 4, 16 and 32."""
     rng = np.random.default_rng(3)
     for nb, B, E, R, rows, key_row, tail in ((37, 4, 32, 5_024, 8, 0, 0),
                                              (3_601, 16, 256, 300_032, 14, 1, 512),
@@ -104,34 +147,61 @@ def _check_radix(dev):
         keys = rng.integers(0, nb, R).astype(np.float32)
         keys[rng.random(R) < 0.2] = nb + 2
         keys[R // 3:R // 3 + 3 * E] = nb + 5
-        table = torch.tensor(rng.uniform(-5, 5, (rows, R)).astype(np.float32), device=dev)
-        table[key_row] = torch.tensor(keys, device=dev)
-        L = tpart.num_passes(nb, B)
-        sentinel = B ** L - 1
-        cur = table
-        k = torch.where(cur[key_row] >= nb, float(sentinel), cur[key_row])
-        for p in range(L):
-            r_out = cur.shape[1] + B * E + (tail if p == L - 1 else 0)
-            kw = dict(B=B, E=E, key_row=key_row, sentinel=sentinel, R_out=r_out)
-            before = (tpart.radix_pass.launches, tpart.radix_unpass.launches)
-            out, bases = tpart.radix_pass(cur, k, p, **kw)
-            want, want_bases = tpart.radix_pass_plain(cur, k, p, **kw)
-            gin = torch.randn((13, r_out), device=dev)
-            back = tpart.radix_unpass(gin, k, p, bases, B=B, E=E, sentinel=sentinel)
-            torch.cuda.synchronize()
-            assert (tpart.radix_pass.launches, tpart.radix_unpass.launches) == \
-                (before[0] + 1, before[1] + 1)
-            assert torch.equal(bases, want_bases) and torch.equal(out, want), (nb, p)
-            assert torch.equal(back, tpart.radix_unpass_plain(gin, k, p, bases, B=B, E=E,
-                                                              sentinel=sentinel)), (nb, p)
-            cur, k = out, out[key_row].clone()
-        # the whole partition on the card and its round trip
-        out, meta = tpart.radix_partition(table, nb, B=B, E=E, key_row=key_row, tail_pad=tail)
-        starts, counts = tpart.bucket_ranges(meta)
-        assert int(counts.sum()) == int((table[key_row] < nb).sum())
-        back = tpart.radix_unpartition(out, meta)
-        valid = table[key_row] < nb
-        assert torch.equal(back[:, valid], table[:, valid])
+        _check_radix_case(dev, rng, nb, B, E, keys, rows, key_row, tail)
+    for B in (2, 4, 16, 32):
+        nb = B * B - 1                               # two passes
+        for R in (9_000, 1_000):                     # not a multiple of a chunk; under one
+            for name, keys in _radix_patterns(rng, nb, B, R):
+                _check_radix_case(dev, rng, nb, B, 8, keys, 20, 1, 16, (B, R, name))
+
+
+def _radix_patterns(rng, nb, B, R):
+    """Key patterns that set K5's runs: random keys; one key (every digit
+    one run per block); alternating digits (runs of one column); and keys
+    that are mostly the sentinel."""
+    mostly = rng.integers(0, nb, R).astype(np.float32)
+    mostly[rng.random(R) < 0.9] = nb + 3
+    return (("random", rng.integers(0, nb, R).astype(np.float32)),
+            ("one digit", np.full(R, nb // 2, np.float32)),
+            ("alternating", (np.arange(R) % B).astype(np.float32)),
+            ("mostly sentinel", mostly))
+
+
+def _check_radix_case(dev, rng, nb, B, E, keys, rows, key_row, tail, label=None):
+    """One table of `rows` rows (more than the kernel stages at once) keyed
+    by `keys` in row `key_row`: K5 bit for bit against its plain version
+    pass by pass (output and bases) and K6 on each pass; then the whole
+    partition on the card and its round trip."""
+    label = label or nb
+    R = keys.shape[0]
+    table = torch.tensor(rng.uniform(-5, 5, (rows, R)).astype(np.float32), device=dev)
+    table[key_row] = torch.tensor(keys, device=dev)
+    L = tpart.num_passes(nb, B)
+    sentinel = B ** L - 1
+    cur = table
+    k = torch.where(cur[key_row] >= nb, float(sentinel), cur[key_row])
+    for p in range(L):
+        r_out = cur.shape[1] + B * E + (tail if p == L - 1 else 0)
+        kw = dict(B=B, E=E, key_row=key_row, sentinel=sentinel, R_out=r_out)
+        before = (tpart.radix_pass.launches, tpart.radix_unpass.launches)
+        out, bases = tpart.radix_pass(cur, k, p, **kw)
+        want, want_bases = tpart.radix_pass_plain(cur, k, p, **kw)
+        gin = torch.randn((13, r_out), device=dev)
+        back = tpart.radix_unpass(gin, k, p, bases, B=B, E=E, sentinel=sentinel)
+        torch.cuda.synchronize()
+        assert (tpart.radix_pass.launches, tpart.radix_unpass.launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert torch.equal(bases, want_bases) and torch.equal(out, want), (label, p)
+        assert torch.equal(back, tpart.radix_unpass_plain(gin, k, p, bases, B=B, E=E,
+                                                          sentinel=sentinel)), (label, p)
+        cur, k = out, out[key_row].clone()
+    # the whole partition on the card and its round trip
+    out, meta = tpart.radix_partition(table, nb, B=B, E=E, key_row=key_row, tail_pad=tail)
+    starts, counts = tpart.bucket_ranges(meta)
+    assert int(counts.sum()) == int((table[key_row] < nb).sum())
+    back = tpart.radix_unpartition(out, meta)
+    valid = table[key_row] < nb
+    assert torch.equal(back[:, valid], table[:, valid])
 
 
 @pytest.mark.gpu
@@ -155,6 +225,7 @@ def test_blend_kernel_matches_plain_on_card():
         _check_backward(st, grid, n_passes, dev)
         if n_passes == 1:
             _check_probe(st, grid, kw)
+    _check_k2_edges(dev)
     _check_radix(dev)
     _check_run_scatter(dev)
 

@@ -27,32 +27,60 @@
 // The rows stay f32 (the JAX package rounds them to f16 pairs, :695-720).
 //
 // With per-pass cotangents of final T (`gte_pass` [NP, T, 256], the
-// partition engine's), 2 NP more rows follow: per pass i, sum|dmx_pix_i| and
-// sum|dmy_pix_i| of the gradient of pass i alone,
+// partition engine's), 2 more rows follow: sum over the passes i and the
+// pixels of |dmx_i| and of |dmy_i|, the gradient of pass i alone,
 //   dalpha_i = T cg_i - (sfx_i + gt_eff_i final_T) / (1 - alpha),
 // the per-axis abs channels the JAX partition engine sums over its one K2
 // launch per pass (rasterize_pallas.py:2426-2438). The other rows are those
-// of the summed gradient, computed as without them.
-//
-// Design (a simple first version): one 256-thread block per 16x16 tile, one
-// thread per pixel. The tile's entries are staged through shared memory in
-// chunks of 64 (thread i loads entry i of every table row: coalesced). Each
-// entry's 7 + 3 NP values are summed over the pixels of a warp with shuffles
-// (skipped when no pixel of the warp contributes to the entry), then the
-// block's 8 warp sums are added from shared memory and written as one
-// coalesced column. Every entry belongs to one tile, so no atomics. The tile
-// stops after the chunk in which every pixel has stopped (a block vote, as in
-// K1); the entries after it are never written, so the caller passes a zeroed
-// output (their gradients are zero: no pixel reaches them).
+// of the summed gradient, computed as without them, bit for bit.
 //
 // Bound on this card: per contributing (pixel, entry) pair ~50 + 14 NP FP32
 // operations plus one exp, and the pixel sums of 7 + 3 NP values, against
 // ~(6 + 3 NP) * 4 bytes read and (7 + 3 NP) * 4 bytes written per entry, so
-// it is bound by operations. This version is limited instead by the serial
-// walk per thread and the shuffle reductions (5 per value per entry).
+// it is bound by operations. Walked naively (every pixel over every entry,
+// each entry's G values summed over each warp with 5 shuffles apiece), most
+// issue slots go to the shuffles and to pairs that contribute nothing, and
+// each tile's entries form one long chain of dependent latencies.
+//
+// Design: one 256-thread block per 16x16 tile, one thread per pixel; each
+// warp holds an 8x4 block of the tile's pixels. Blocks take the tiles in
+// the order the caller gives, longest list first, so that the longest
+// serial walks start at once and the short ones fill the card around them.
+// The tile's entries are staged through shared memory in chunks of 64
+// (coalesced: entry e of every table row by thread e, kept entry-major for
+// 16-byte reads) with, for each (entry, warp), whether the entry's alpha can
+// reach 1/255 on the warp's pixels (reaches); the next chunk is staged while
+// the block sums the last one, two barriers a chunk. Each warp walks only
+// the entries that reach its block, and none once its pixels have stopped
+// (both uniform over the warp), in two phases:
+//   1. the forward recurrence: alpha, K1's skips and stop, T before the
+//      entry and the per-pass prefixes (the only values carried from entry
+//      to entry);
+//   2. if any pixel of the warp contributes, the gradient values, as
+//      straight-line code (zero where the pixel does not contribute), then
+//      the warp's sums of the first 16 rows by a reduce-scatter butterfly
+//      (16 shuffles: lane 2m ends with row m's sum) and of any further rows
+//      by 5 shuffles each, stored to shared memory ([warp][row][entry],
+//      padded against bank conflicts).
+// After the chunk the block adds the warps' sums of every (row, entry),
+// zero for a warp that stored none, and writes the chunk's rows coalesced.
+// Every entry belongs to one tile, so no atomics. The tile stops after the
+// chunk in which every pixel has stopped (a block vote, as in K1); the
+// entries after it are never written, so the caller passes a zeroed output
+// (their gradients are zero: no pixel reaches them). At most 48 registers a
+// thread (five blocks per SM; a few bytes spill): the walk is bound by
+// latency, and more warps in flight hide more of it.
+// Every operation that feeds the rows is a round-to-nearest intrinsic
+// (__fmaf_rn, __fmul_rn, ...), which the compiler neither fuses nor splits:
+// the summed rows are one sequence of roundings in every instantiation, so
+// they stay bit for bit the same with the abs rows. 1 / (1 - alpha) is one
+// fast reciprocal per pair (__fdividef, 1 - alpha in [0.01, 1]: within 2
+// ulp; the plain version divides, so the rows differ in the last bits).
 //
 // The launch goes on the caller's stream; the kernel allocates nothing and
 // does not synchronize with the host. wg_blend_bwd returns cudaGetLastError().
+
+#include <cmath>
 
 #include <cuda_runtime.h>
 
@@ -61,17 +89,74 @@ namespace {
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;
 constexpr int kWarps = kPix / 32;
+// a warp's pixels: kWarpW x kWarpH of the tile, the warps 2 x 4 of them
+constexpr int kWarpW = 8;
+constexpr int kWarpH = 4;
 constexpr int kChunk = 64;
+constexpr int kFan = 16;          // the rows the butterfly sums
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTEps = 1e-4f;
 constexpr unsigned kFull = 0xffffffffu;
 
+// One step of the butterfly: the lanes with bit 2H set keep values [H, 2H)
+// and send [0, H) to their partner across that bit, the others the reverse;
+// each ends with its kept half plus the partner's in v[0, H).
+template <int H>
+__device__ __forceinline__ void fold(float* v, int lane) {
+  const bool upper = (lane & (2 * H)) != 0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = upper ? v[k] : v[k + H];
+    const float keep = upper ? v[k + H] : v[k];
+    v[k] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, 2 * H));
+  }
+}
+
+// The warp's sums of v[0, 16) in 8 + 4 + 2 + 1 + 1 = 16 shuffles: afterwards
+// v[0] of lane l holds the sum over the 32 lanes of value (l >> 1) & 15. The
+// additions of one value do not depend on the others.
+__device__ __forceinline__ void reduce_scatter16(float* v, int lane) {
+  fold<8>(v, lane);
+  fold<4>(v, lane);
+  fold<2>(v, lane);
+  fold<1>(v, lane);
+  v[0] = __fadd_rn(v[0], __shfl_xor_sync(kFull, v[0], 1));
+}
+
+// Whether an entry's alpha can reach 1/255 on a warp's pixels, the rows
+// [y0, y0 + kWarpH) of the columns [x0, x0 + kWarpW): alpha >= 1/255 needs
+// op exp(power) >= 1/255, that is q = d^T C d <= 2 tau with tau =
+// log(255 op), C the conic and d = mean - pixel. Along a row q is a
+// parabola in dx, convex where ca > 0, whose least value on the row's
+// segment is at its clamped minimiser. The bound carries a margin well
+// above the rounding of this test and of the per-pixel one. An entry with
+// ca <= 0 or a NaN opacity reaches every row (the per-pixel tests decide).
+__device__ __forceinline__ bool reaches(float mx, float my, float ca, float cb, float cc,
+                                        float op, float x0, float y0) {
+  if (!(ca > 0.0f)) return true;
+  const float tau = logf(255.0f * op);
+  if (!(tau >= 0.0f)) return op != op;
+  const float lo = mx - (x0 + (kWarpW - 1)), hi = mx - x0;
+  const float slope = -cb / ca;
+  bool hit = false;
+#pragma unroll
+  for (int r = 0; r < kWarpH; ++r) {
+    const float dy = my - (y0 + r);
+    const float dx = fminf(hi, fmaxf(lo, slope * dy));
+    const float q = (ca * dx + 2.0f * cb * dy) * dx + cc * dy * dy;
+    const float size = ca * dx * dx + 2.0f * fabsf(cb * dx * dy) + cc * dy * dy;
+    hit = hit || q <= 2.002f * tau + 1e-4f * size + 1e-5f;
+  }
+  return hit;
+}
+
+// at most 48 registers a thread: five blocks per SM
 template <int NP, bool PASS_ABS>
-__global__ void __launch_bounds__(kPix)
+__global__ void __launch_bounds__(kPix, 5)
 blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
                  const int* __restrict__ starts, const int* __restrict__ counts,
-                 int grid_x, int num_tiles,
+                 const int* __restrict__ order, int grid_x, int num_tiles,
                  const float* __restrict__ gcol, const float* __restrict__ gte,
                  const float* __restrict__ gte_pass,
                  const float* __restrict__ colors, const float* __restrict__ final_t,
@@ -79,25 +164,36 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
                  float* __restrict__ grads, long long grad_stride) {
   constexpr int W = 6 + 3 * NP;
   constexpr int G0 = 7 + 3 * NP;                   // the summed gradient's rows
-  constexpr int G = G0 + (PASS_ABS ? 2 * NP : 0);
-  __shared__ float ent[W][kChunk];
-  __shared__ float part[kWarps][G][kChunk];
+  constexpr int G = G0 + (PASS_ABS ? 2 : 0);
+  constexpr int GF = G < kFan ? G : kFan;          // rows of the butterfly
+  constexpr int GV = G < kFan ? kFan : G;          // values per thread, zero-padded
+  constexpr int W4 = (W + 3) / 4;                  // float4s per staged entry
+  __shared__ float4 ent[kChunk][W4];
+  __shared__ bool reach[kChunk][kWarps];
+  __shared__ float part[kWarps][G][kChunk + 1];
+  __shared__ unsigned long long wrote[kWarps];   // the entries each warp's part holds
 
-  const int t = blockIdx.x;
+  const int t = order[blockIdx.x];
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
   const int start = starts[t];
   const int count = counts[t];
-  const float px = static_cast<float>((t % grid_x) * kTile + p % kTile);
-  const float py = static_cast<float>((t / grid_x) * kTile + p / kTile);
+  // the warp's block of pixels, and this thread's pixel in it
+  const int wx = (warp % (kTile / kWarpW)) * kWarpW;
+  const int wy = (warp / (kTile / kWarpW)) * kWarpH;
+  const int lx = wx + lane % kWarpW;
+  const int ly = wy + lane / kWarpW;
+  const float px = static_cast<float>((t % grid_x) * kTile + lx);
+  const float py = static_cast<float>((t / grid_x) * kTile + ly);
 
   // per pixel: each pass's color cotangent, out . gc (the suffix base), the
-  // running prefix, and gt_eff * final_T
+  // running prefix, and gt_eff * final_T (and each pass's)
   float gc[3 * NP];
   float out_dot_g[NP];
   float prefix[NP];
-  const long long pix = static_cast<long long>(t) * kPix + p;
+  float gte_ft_pass[NP];
+  const long long pix = static_cast<long long>(t) * kPix + ly * kTile + lx;
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
     const long long o = (static_cast<long long>(i) * num_tiles * kPix + pix) * 3;
@@ -105,137 +201,194 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       gc[3 * i + c] = gcol[o + c];
-      out_dot_g[i] += colors[o + c] * gc[3 * i + c];
+      out_dot_g[i] = __fmaf_rn(colors[o + c], gc[3 * i + c], out_dot_g[i]);
     }
     prefix[i] = 0.0f;
+    if constexpr (PASS_ABS)
+      gte_ft_pass[i] = __fmul_rn(gte_pass[static_cast<long long>(i) * num_tiles * kPix + pix],
+                                 final_t[pix]);
   }
-  const float gte_ft = gte[pix] * final_t[pix];
-  float gte_ft_pass[NP];
-  if constexpr (PASS_ABS) {
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      gte_ft_pass[i] = gte_pass[static_cast<long long>(i) * num_tiles * kPix + pix] * final_t[pix];
-  }
+  const float gte_ft = __fmul_rn(gte[pix], final_t[pix]);
 
   float T = 1.0f;
   bool done = false;
-  bool all_done = false;
 
-  // `all_done`, `base` and `count` are uniform over the block, so every
-  // thread reaches the same barriers and every lane the same shuffles
-  for (int base = 0; base < count && !all_done; base += kChunk) {
+  // stages the chunk of entries [c, c + kChunk) of the tile: the entries,
+  // and for each entry and warp whether the entry can reach the warp's
+  // pixels (two pairs a thread, the geometry read through the cache)
+  const float tx0 = static_cast<float>((t % grid_x) * kTile);
+  const float ty0 = static_cast<float>((t / grid_x) * kTile);
+  auto stage = [&](int c) {
+    const int m = min(kChunk, count - c);
+    const float* src = table + static_cast<long long>(start) + c;
+    if (p < m) {
+      float* dst = reinterpret_cast<float*>(ent[p]);
+#pragma unroll
+      for (int r = 0; r < W; ++r) dst[r] = src[r * row_stride + p];
+    }
+    for (int id = p; id < m * kWarps; id += kPix) {
+      const float* e = src + id / kWarps;
+      const int w = id % kWarps;
+      reach[id / kWarps][w] =
+          reaches(e[0], e[row_stride], e[2 * row_stride], e[3 * row_stride],
+                  e[4 * row_stride], e[5 * row_stride],
+                  tx0 + (w % (kTile / kWarpW)) * kWarpW, ty0 + (w / (kTile / kWarpW)) * kWarpH);
+    }
+  };
+
+  // `base` and `count` are uniform over the block, so every thread reaches
+  // the same barriers (two per chunk); the tests that skip work are uniform
+  // over the warp, so every lane reaches the same shuffles
+  if (count > 0) stage(0);
+  for (int base = 0; base < count; base += kChunk) {
     const int n = min(kChunk, count - base);
-    __syncthreads();  // the previous chunk's readers are done with ent/part
-    if (p < n) {
-      const float* src = table + static_cast<long long>(start) + base + p;
+    __syncthreads();  // the chunk is staged, and the last chunk's sums are read
+    // the warp walks only the chunk's entries that reach its pixels, and
+    // none once all its pixels have stopped
+    unsigned long long todo =
+        static_cast<unsigned long long>(__ballot_sync(kFull, lane < n && reach[lane][warp])) |
+        static_cast<unsigned long long>(
+            __ballot_sync(kFull, lane + 32 < n && reach[lane + 32][warp])) << 32;
+    unsigned long long mine = 0;
+    while (todo != 0 && !__all_sync(kFull, done)) {
+      const int k = __ffsll(static_cast<long long>(todo)) - 1;
+      todo &= todo - 1;
+      // the entry: x, y, conic a, b, c, opacity, then each pass's color
+      float f[4 * W4];
 #pragma unroll
-      for (int r = 0; r < W; ++r) ent[r][p] = src[r * row_stride];
-    }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      float v[G];
+      for (int j = 0; j < W4; ++j) {
+        const float4 q4 = ent[k][j];
+        f[4 * j] = q4.x;
+        f[4 * j + 1] = q4.y;
+        f[4 * j + 2] = q4.z;
+        f[4 * j + 3] = q4.w;
+      }
+      // 1. the forward recurrence: K1's skips and stop, T and the prefixes
+      const float dx = __fsub_rn(f[0], px);
+      const float dy = __fsub_rn(f[1], py);
+      const float ca = f[2], cb = f[3], cc = f[4];
+      // each operation rounded on its own, as the plain version's are, so
+      // that the alpha floor decides alike
+      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx), __fmul_rn(__fmul_rn(cc, dy), dy));
+      const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
+      const float e = expf(power);
+      const float alpha = fminf(kAlphaMax, __fmul_rn(f[5], e));
+      const bool use = !done && power <= 0.0f && alpha >= kAlphaMin;
+      const float test_t = __fmul_rn(T, __fsub_rn(1.0f, alpha));
+      done = done || (use && test_t < kTEps);
+      const bool c = use && !(test_t < kTEps);
+      const float t_at = T;
+      T = c ? test_t : T;
+      const float w = __fmul_rn(alpha, t_at);
+      float cg[NP], sfx[NP];
 #pragma unroll
-      for (int r = 0; r < G; ++r) v[r] = 0.0f;
-      bool contrib = false;
-      if (!done) {
-        const float ca = ent[2][k], cb = ent[3][k], cc = ent[4][k];
-        const float dx = ent[0][k] - px;
-        const float dy = ent[1][k] - py;
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-        if (power <= 0.0f) {
-          const float e = expf(power);
-          const float alpha = fminf(kAlphaMax, ent[5][k] * e);
-          if (alpha >= kAlphaMin) {
-            const float test_t = T * (1.0f - alpha);
-            if (test_t < kTEps) {
-              done = true;
-            } else {
-              contrib = true;
-              const float w = alpha * T;
-              float cg_sum = 0.0f, sfx_sum = 0.0f;
-              float cg_pass[NP], sfx_pass[NP];
+      for (int i = 0; i < NP; ++i) {
+        cg[i] = __fmaf_rn(gc[3 * i + 2], f[8 + 3 * i],
+                          __fmaf_rn(gc[3 * i + 1], f[7 + 3 * i], __fmul_rn(gc[3 * i], f[6 + 3 * i])));
+        prefix[i] = c ? __fmaf_rn(w, cg[i], prefix[i]) : prefix[i];
+        sfx[i] = __fsub_rn(out_dot_g[i], prefix[i]);
+      }
+      // 2. where a pixel of the warp contributes: the gradient values
+      // (straight-line code, zero where this pixel does not contribute)
+      // and their sums over the warp
+      if (__any_sync(kFull, c)) {
+        float v[GV];
 #pragma unroll
-              for (int i = 0; i < NP; ++i) {
-                const float cg = gc[3 * i + 0] * ent[6 + 3 * i + 0][k]
-                               + gc[3 * i + 1] * ent[6 + 3 * i + 1][k]
-                               + gc[3 * i + 2] * ent[6 + 3 * i + 2][k];
-                prefix[i] += w * cg;
-                sfx_sum += out_dot_g[i] - prefix[i];
-                cg_sum += cg;
-                cg_pass[i] = cg;
-                sfx_pass[i] = out_dot_g[i] - prefix[i];
-                v[7 + 3 * i + 0] = gc[3 * i + 0] * w;
-                v[7 + 3 * i + 1] = gc[3 * i + 1] * w;
-                v[7 + 3 * i + 2] = gc[3 * i + 2] * w;
-              }
-              float dalpha = T * cg_sum - (sfx_sum + gte_ft) / (1.0f - alpha);
-              if (alpha >= kAlphaMax) dalpha = 0.0f;
-              const float dpower = dalpha * alpha;
-              const float dmx = dpower * (-(ca * dx + cb * dy));
-              const float dmy = dpower * (-(cc * dy + cb * dx));
-              v[0] = dmx;
-              v[1] = dmy;
-              v[2] = dpower * (-0.5f * dx * dx);
-              v[3] = dpower * (-dx * dy);
-              v[4] = dpower * (-0.5f * dy * dy);
-              v[5] = dalpha * e;
-              v[6] = sx * fabsf(dmx) + sy * fabsf(dmy);
-              if constexpr (PASS_ABS) {
+        for (int r = G0; r < GV; ++r) v[r] = 0.0f;
+        const float inv = __fdividef(1.0f, __fsub_rn(1.0f, alpha));   // 1 / (1 - alpha)
+        const bool live = c && alpha < kAlphaMax;                     // dalpha = 0 on the cap
+        const float wc = c ? w : 0.0f;
+        float cg_sum = cg[0], sfx_sum = sfx[0];
 #pragma unroll
-                for (int i = 0; i < NP; ++i) {
-                  float da = T * cg_pass[i] - (sfx_pass[i] + gte_ft_pass[i]) / (1.0f - alpha);
-                  if (alpha >= kAlphaMax) da = 0.0f;
-                  const float dp = da * alpha;
-                  v[G0 + 2 * i + 0] = fabsf(dp * (-(ca * dx + cb * dy)));
-                  v[G0 + 2 * i + 1] = fabsf(dp * (-(cc * dy + cb * dx)));
-                }
-              }
-              T = test_t;
-            }
+        for (int i = 1; i < NP; ++i) {
+          sfx_sum = __fadd_rn(sfx_sum, sfx[i]);
+          cg_sum = __fadd_rn(cg_sum, cg[i]);
+        }
+#pragma unroll
+        for (int ch = 0; ch < 3 * NP; ++ch) v[7 + ch] = __fmul_rn(gc[ch], wc);
+        const float gx = -__fmaf_rn(ca, dx, __fmul_rn(cb, dy));   // d power / d mean
+        const float gy = -__fmaf_rn(cc, dy, __fmul_rn(cb, dx));
+        float dalpha = __fmaf_rn(t_at, cg_sum, -__fmul_rn(__fadd_rn(sfx_sum, gte_ft), inv));
+        dalpha = live ? dalpha : 0.0f;
+        const float dpower = __fmul_rn(dalpha, alpha);
+        const float dmx = __fmul_rn(dpower, gx);
+        const float dmy = __fmul_rn(dpower, gy);
+        v[0] = dmx;
+        v[1] = dmy;
+        v[2] = __fmul_rn(dpower, __fmul_rn(__fmul_rn(-0.5f, dx), dx));
+        v[3] = __fmul_rn(dpower, __fmul_rn(-dx, dy));
+        v[4] = __fmul_rn(dpower, __fmul_rn(__fmul_rn(-0.5f, dy), dy));
+        v[5] = __fmul_rn(dalpha, e);
+        v[6] = __fmaf_rn(sx, fabsf(dmx), __fmul_rn(sy, fabsf(dmy)));
+        if constexpr (PASS_ABS) {
+          float ax = 0.0f, ay = 0.0f;
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            float da = __fmaf_rn(t_at, cg[i],
+                                 -__fmul_rn(__fadd_rn(sfx[i], gte_ft_pass[i]), inv));
+            da = live ? da : 0.0f;
+            const float dp = __fmul_rn(da, alpha);
+            ax = __fadd_rn(ax, fabsf(__fmul_rn(dp, gx)));
+            ay = __fadd_rn(ay, fabsf(__fmul_rn(dp, gy)));
           }
+          v[G0] = ax;
+          v[G0 + 1] = ay;
         }
-      }
-      if (__any_sync(kFull, contrib)) {
+        reduce_scatter16(v, lane);
 #pragma unroll
-        for (int r = 0; r < G; ++r) {
-          float s = v[r];
+        for (int r = kFan; r < G; ++r) {
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-          v[r] = s;
+          for (int off = 16; off > 0; off >>= 1)
+            v[r] = __fadd_rn(v[r], __shfl_xor_sync(kFull, v[r], off));
         }
-      }
-      if (lane == 0) {
+        // lane 2m holds row m's sum
+        if (!(lane & 1) && (lane >> 1) < GF) part[warp][lane >> 1][k] = v[0];
+        if (lane == 0) {
 #pragma unroll
-        for (int r = 0; r < G; ++r) part[warp][r][k] = v[r];
+          for (int r = kFan; r < G; ++r) part[warp][r][k] = v[r];
+        }
+        mine |= 1ull << k;
       }
     }
-    // the vote is also the barrier after which `part` is complete
-    all_done = __syncthreads_count(done) == kPix;
+    if (lane == 0) wrote[warp] = mine;
+    // the vote is also the barrier after which `part` is complete and the
+    // chunk's entries are no longer read; a warp that wrote no sums for an
+    // entry adds zero
+    const bool all_done = __syncthreads_count(done) == kPix;
+    unsigned long long wr[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) wr[w] = wrote[w];
     for (int idx = p; idx < G * n; idx += kPix) {
       const int r = idx / n;
       const int k = idx - r * n;
       float s = 0.0f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += part[w][r][k];
+      for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, (wr[w] >> k & 1ull) ? part[w][r][k] : 0.0f);
       grads[r * grad_stride + start + base + k] = s;
     }
+    if (all_done) break;
+    if (base + kChunk < count) stage(base + kChunk);
   }
 }
 
 template <int NP, bool PASS_ABS>
 void launch(const float* table, long long row_stride, const int* starts, const int* counts,
-            int num_tiles, int grid_x, const float* gcol, const float* gte,
+            const int* order, int num_tiles, int grid_x, const float* gcol, const float* gte,
             const float* gte_pass, const float* colors, const float* final_t, float sx,
             float sy, float* grads, long long grad_stride, cudaStream_t s) {
   blend_bwd_kernel<NP, PASS_ABS><<<num_tiles, kPix, 0, s>>>(
-      table, row_stride, starts, counts, grid_x, num_tiles, gcol, gte, gte_pass, colors,
+      table, row_stride, starts, counts, order, grid_x, num_tiles, gcol, gte, gte_pass, colors,
       final_t, sx, sy, grads, grad_stride);
 }
+
+using Launch = void (*)(const float*, long long, const int*, const int*, const int*, int, int,
+                        const float*, const float*, const float*, const float*, const float*,
+                        float, float, float*, long long, cudaStream_t);
 
 }  // namespace
 
 extern "C" int wg_blend_bwd(const float* table, long long row_stride,
-                            const int* starts, const int* counts,
+                            const int* starts, const int* counts, const int* order,
                             int num_tiles, int grid_x, int n_passes,
                             const float* gcol, const float* gte, const float* gte_pass,
                             const float* colors, const float* final_t,
@@ -243,27 +396,12 @@ extern "C" int wg_blend_bwd(const float* table, long long row_stride,
                             float* grads, long long grad_stride,
                             void* stream) {
   if (num_tiles <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gte_pass == nullptr) {
-    switch (n_passes) {
-      case 1: launch<1, false>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
-                               gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
-      case 2: launch<2, false>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
-                               gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
-      case 3: launch<3, false>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
-                               gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else {
-    switch (n_passes) {
-      case 1: launch<1, true>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
-                              gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
-      case 2: launch<2, true>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
-                              gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
-      case 3: launch<3, true>(table, row_stride, starts, counts, num_tiles, grid_x, gcol, gte,
-                              gte_pass, colors, final_t, sx, sy, grads, grad_stride, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
+  if (n_passes < 1 || n_passes > 3) return static_cast<int>(cudaErrorInvalidValue);
+  static const Launch kLaunch[2][3] = {{launch<1, false>, launch<2, false>, launch<3, false>},
+                                       {launch<1, true>, launch<2, true>, launch<3, true>}};
+  kLaunch[gte_pass != nullptr][n_passes - 1](table, row_stride, starts, counts, order, num_tiles,
+                                             grid_x, gcol, gte, gte_pass, colors, final_t, sx,
+                                             sy, grads, grad_stride,
+                                             static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,9 @@
 
 namespace radix {
 
+// the block and its chunk (K5's staged scatter measured the same at 128
+// threads; 8,192-column chunks were slower: more registers, fewer blocks in
+// flight)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 16;
@@ -116,22 +119,27 @@ scan_kernel(const int* __restrict__ counts, int nblk, int B, int E, int make_bas
 }
 
 // The stable ranks of one block's columns, tile by tile. For each tile of
-// kThreads columns it calls visit(i, key, dest) for every column i < R of
-// the tile, where dest is K5's destination of column i. Warp w's lanes rank
-// themselves by digit with one ballot per digit; lane d < B of each warp
-// publishes the warp's count of digit d, and threads d < B turn the warps'
-// counts into the tile's warp offsets and advance the block's running
-// offset of digit d. `run` and `wbase` are shared arrays of the caller.
+// kThreads columns it calls visit(it, i, key, d, pos) for every column
+// i < R of the tile (it: the tile's number, d: the column's digit), where
+// pos = first[d] + (columns of digit d before i in the block). With
+// first = the block's row of offsets, pos is K5's destination; with
+// first = the exclusive prefix of the block's own counts, pos is the
+// column's place in the block's chunk sorted stably by digit. Warp w's
+// lanes rank themselves by digit with one ballot per digit; lane d < B of
+// each warp publishes the warp's count of digit d, and threads d < B turn
+// the warps' counts into the tile's warp offsets and advance the block's
+// running position of digit d. `first` must be readable by threads d < B;
+// `run` and `wbase` are shared arrays of the caller.
 template <typename Visit>
 __device__ __forceinline__ void for_each_rank(const float* __restrict__ keys, int R,
-                                              float scale, int B,
-                                              const int* __restrict__ offsets,
+                                              float scale, int B, const int* first,
                                               int* run, int (*wbase)[kMaxB], Visit visit) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned lt = (1u << lane) - 1u;
-  if (threadIdx.x < B) run[threadIdx.x] = offsets[blockIdx.x * B + threadIdx.x];
+  if (threadIdx.x < B) run[threadIdx.x] = first[threadIdx.x];
   const long long base = static_cast<long long>(blockIdx.x) * kChunk;
+#pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const long long i = base + it * kThreads + threadIdx.x;
     const bool valid = i < R;
@@ -158,7 +166,7 @@ __device__ __forceinline__ void for_each_rank(const float* __restrict__ keys, in
       run[threadIdx.x] = acc;
     }
     __syncthreads();
-    if (valid) visit(i, key, static_cast<long long>(wbase[warp][d]) + rank);
+    if (valid) visit(it, i, key, d, wbase[warp][d] + rank);
   }
 }
 

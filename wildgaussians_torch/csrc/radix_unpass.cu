@@ -42,13 +42,14 @@ gather_kernel(const float* __restrict__ gin, long long ld_g, int grows, int R,
               const int* __restrict__ offsets, float* __restrict__ out, long long ld_out) {
   __shared__ int run[kMaxB];
   __shared__ int wbase[kWarps][kMaxB];
-  radix::for_each_rank(keys, R, scale, B, offsets, run, wbase,
-                       [&](long long i, float key, long long dest) {
-                         const bool hole = key >= sentinel;
-                         for (int r = 0; r < grows; ++r) {
-                           out[r * ld_out + i] = hole ? 0.0f : gin[r * ld_g + dest];
-                         }
-                       });
+  radix::for_each_rank(
+      keys, R, scale, B, offsets + blockIdx.x * B, run, wbase,
+      [&](int, long long i, float key, int, int dest) {
+        const bool hole = key >= sentinel;
+        for (int r = 0; r < grows; ++r) {
+          out[r * ld_out + i] = hole ? 0.0f : gin[r * ld_g + dest];
+        }
+      });
 }
 
 }  // namespace

@@ -147,7 +147,8 @@ def blend_walked_plain(table: torch.Tensor, tile_starts: torch.Tensor,
 
 
 def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
-                      tile_counts: torch.Tensor, grid: TileGrid) -> Dict[str, int]:
+                      tile_counts: torch.Tensor, grid: TileGrid,
+                      warp_block: Optional[Tuple[int, int]] = None) -> Dict[str, int]:
     """The (pixel, entry) pairs K1's function needs on these inputs, by the
     work each needs (from the plain version's masks):
 
@@ -157,8 +158,22 @@ def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
       used         alpha >= 1/255 as well: the T (1 - alpha) test;
       contributing used before the crossing: the weight and each pass's
                    color FMAs.
+
+    With warp_block = (w, h), the tile's pixels are cut into w x h blocks
+    (row-major, as K2's warps hold them), and three counts follow for a
+    walk that first tests, per (block, entry), whether the entry's alpha
+    reaches 1/255 on any pixel of the block, and evaluates the pixels of
+    the blocks it reaches only:
+
+      reach_tests        (block, entry) pairs with an evaluated pixel;
+      evaluated_reached  evaluated pairs whose block the entry reaches;
+      exp_reached        exp pairs whose block the entry reaches.
     """
     out = dict(evaluated=0, exp=0, used=0, contributing=0)
+    if warp_block is not None:
+        out.update(reach_tests=0, evaluated_reached=0, exp_reached=0)
+        bw, bh = warp_block
+        ts = grid.tile_size
     for b in _plain_batches(table, tile_starts, tile_counts, grid):
         # T before the entry; T only falls, so T_before >= 1e-4 holds up to
         # and including the pixel's crossing entry
@@ -168,6 +183,14 @@ def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
         out["exp"] += int((ev & b.power_ok).sum())
         out["used"] += int((ev & b.use).sum())
         out["contributing"] += int((b.use & (b.t_inc >= T_EPS)).sum())
+        if warp_block is not None:
+            nb, _p, L = ev.shape
+            blocks = (nb, ts // bh, bh, ts // bw, bw, L)
+            reach = b.use.view(blocks).any(4, keepdim=True).any(2, keepdim=True)
+            ev_b = ev.view(blocks)
+            out["reach_tests"] += int(ev_b.any(4).any(2).sum())
+            out["evaluated_reached"] += int((ev_b & reach).sum())
+            out["exp_reached"] += int((ev_b & reach & b.power_ok.view(blocks)).sum())
     return out
 
 
@@ -229,10 +252,15 @@ blend_forward.launches = 0
 
 
 def grad_rows(n_passes: int, pass_abs: bool = False) -> int:
-    """Per-entry gradient rows of the blend backward: dmx, dmy, dca, dcb,
-    dcc, dop, the fused NDC abs channel, then r, g, b per color pass; with
-    `pass_abs`, then sum|dmx_pix|, sum|dmy_pix| of each pass's own gradient."""
-    return 7 + 3 * n_passes + (2 * n_passes if pass_abs else 0)
+    """Per-entry gradient rows of the blend backward, summed over each
+    tile's pixels: rows 0-5 dmx, dmy, dca, dcb, dcc, dop; row 6 the fused
+    NDC abs channel; rows 7 + 3i to 9 + 3i the r, g, b of color pass i.
+    With `pass_abs`, rows G0 = 7 + 3 n_passes and G0 + 1 follow:
+    sum|dmx_pix| and sum|dmy_pix| of each pass's own gradient, each summed
+    over the passes. The partition engine, which does not read row 6, puts
+    the row G0 + 1 there and sends rows [0, G0 + 1) back through its
+    partitions: its abs statistic is then x at row G0, y at row 6."""
+    return 7 + 3 * n_passes + (2 if pass_abs else 0)
 
 
 def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
@@ -252,9 +280,9 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
     (sum(sfx) + gte final_T) / (1 - alpha), zeroed where alpha is capped.
     Returns [7 + 3 n_passes, N] rows summed over each tile's pixels, zero
     for every entry no pixel reaches. With gte_pass [n_passes, T, 256] (each
-    pass's own gt_eff, which sum to gte), 2 n_passes rows follow: per pass,
-    sum|dmx_pix| and sum|dmy_pix| of the dalpha of that pass alone (T cg -
-    (sfx + gte_pass final_T) / (1 - alpha)), unscaled."""
+    pass's own gt_eff, which sum to gte), 2 rows follow: the sums over the
+    passes of sum|dmx_pix| and of sum|dmy_pix| of the dalpha of each pass
+    alone (T cg - (sfx + gte_pass final_T) / (1 - alpha)), unscaled."""
     sx, sy = float(ndc_scale[0]), float(ndc_scale[1])
     out = torch.zeros((grad_rows(n_passes, gte_pass is not None), table.shape[1]),
                       dtype=torch.float32, device=table.device)
@@ -292,9 +320,11 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
         dalpha, dpower, dmx_pix, dmy_pix = pixel_mean_grads(cg_sum, sfx_sum, gte)
         pass_abs = []
         if gte_pass is not None:
+            ax = ay = 0.0
             for i, (cg, sfx) in enumerate(pass_terms):
                 _da, _dp, mx, my = pixel_mean_grads(cg, sfx, gte_pass[i])
-                pass_abs += [mx.abs().sum(1), my.abs().sum(1)]
+                ax, ay = ax + mx.abs(), ay + my.abs()
+            pass_abs = [ax.sum(1), ay.sum(1)]
         rows = torch.stack(
             [dmx_pix.sum(1), dmy_pix.sum(1),
              (dpower * (-0.5 * b.dx * b.dx)).sum(1),
@@ -310,7 +340,7 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p,
                  ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong,
@@ -337,7 +367,7 @@ def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
                    final_t: torch.Tensor, ndc_scale: Tuple[float, float],
                    gte_pass: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: the per-entry gradient rows [7 + 3 n_passes, N] of the blend, and
-    with gte_pass the 2 n_passes per-pass abs rows after them (see
+    with gte_pass the 2 per-pass abs rows after them (see
     blend_backward_plain for the arguments). A CPU table runs the plain
     version; a CUDA table launches the kernel in `csrc/blend_bwd.cu` and
     adds one to `blend_backward.launches`."""
@@ -366,11 +396,13 @@ def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
         _check_f32("gte_pass", gte_pass, (n_passes, T, P_PIX), table.device)
     grads = torch.zeros((grad_rows(n_passes, gte_pass is not None), table.shape[1]),
                         dtype=torch.float32, device=table.device)
+    # the kernel takes the tiles longest list first
+    order = torch.argsort(tile_counts[:T], descending=True).to(torch.int32)
     fn = _bwd_kernel()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), T, grid.grid_x, n_passes,
+                 tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, n_passes,
                  gcol.data_ptr(), gte.data_ptr(),
                  None if gte_pass is None else gte_pass.data_ptr(),
                  colors.data_ptr(), final_t.data_ptr(),

@@ -163,8 +163,9 @@ def radix_pass(table: torch.Tensor, keys: torch.Tensor, p: int, *, B: int, E: in
     """K5: one stable radix pass (see radix_pass_plain for the function).
     A CPU table runs the plain version; a CUDA table launches the kernels of
     `csrc/radix_pass.cu` (digit counts per block, their scan into bucket
-    bases and block offsets, the stable scatter of every row, the sentinel
-    fill) and adds one to `radix_pass.launches`."""
+    bases and block offsets, the stable scatter of every row staged in
+    shared memory by digit, the sentinel fill) and adds one to
+    `radix_pass.launches`."""
     if table.device.type == "cpu":
         return radix_pass_plain(table, keys, p, B=B, E=E, key_row=key_row,
                                 sentinel=sentinel, R_out=R_out)

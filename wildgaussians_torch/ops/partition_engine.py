@@ -20,7 +20,7 @@ and sorts, this one:
      order;
   4. blends the tile segments with K1 over the table's attribute rows.
 
-The backward runs K2 on the same rows (with its per-pass abs rows), sends
+The backward runs K2 on the same rows (with its two per-pass abs rows), sends
 the per-entry rows back through the inverse tile and rank partitions (K6),
 sums them per rank (tier 1 over d1 slots, tier 2 per pool slot merged at
 `big_list` by K3), and sends the rank sums back through the inverse
@@ -222,7 +222,7 @@ class PartitionBlend(torch.autograd.Function):
     returns the colors with the background [n_passes, T, 256, 3] and each
     pass's final_T [n_passes, T, 256] (equal values; each pass's own
     cotangent reaches the backward, as in the JAX engine). Backward: the
-    cotangent pack, K2 with its per-pass abs rows, dbg, K6 through the tile
+    cotangent pack, K2 with its two per-pass abs rows, dbg, K6 through the tile
     and rank partitions, the rank sums with K3, K6 through the presort.
 
     The abs-gradient hook [N, 2] receives the JAX partition engine's
@@ -264,7 +264,7 @@ class PartitionBlend(torch.autograd.Function):
         sz, n = ctx.sizes, ctx.n
         n_passes = colors.shape[0]
         G0 = blend.grad_rows(n_passes)
-        G = G0 + 1                  # and the per-pass abs rows' two sums
+        G = G0 + 1                  # with the two per-axis abs rows, less the fused row
         g_color = g_color.contiguous()
         # cotangent pack: each pass's gt_eff, and their sum (final_T is shared)
         gte_pass = (g_final_t + torch.einsum("itpc,c->itp", g_color, bg)).contiguous()
@@ -277,13 +277,9 @@ class PartitionBlend(torch.autograd.Function):
             eg = blend.blend_backward(table[sz.nkey:sz.nkey + 6 + 3 * n_passes], starts, counts,
                                       ctx.grid, n_passes, g_color, gte, colors, final_t,
                                       ctx.ndc_scale, gte_pass)
-            # the per-axis abs rows summed over the passes, in place of the
-            # fused row 6 (x) and of the first pass's x row (y): rows [0, G)
-            # then go back through the partitions
-            abs_x, abs_y = eg[G0::2].sum(0), eg[G0 + 1::2].sum(0)
-            eg[6].copy_(abs_x)
-            eg[G0].copy_(abs_y)
-            del abs_x, abs_y
+            # the y abs sum replaces the fused row 6 (grad_rows' layout), so
+            # that rows [0, G) go back through the partitions
+            eg[6].copy_(eg[G0 + 1])
             eg = eg[:G]
         dbg = torch.einsum("itpc,tp->c", g_color, final_t)
         with span("unpartition"):
@@ -303,7 +299,7 @@ class PartitionBlend(torch.autograd.Function):
         with span("unpartition"):
             orig = radix_unpartition(sums, pmeta)[:, :n]
         sx, sy = ctx.ndc_scale
-        dabs = torch.stack([orig[6] * float(sx), orig[G0] * float(sy)], dim=-1)
+        dabs = torch.stack([orig[G0] * float(sx), orig[6] * float(sy)], dim=-1)
         dcolors = torch.stack([orig[7 + 3 * i:10 + 3 * i].T for i in range(n_passes)])
         return (orig[0:2].T, orig[2:5].T, orig[5], dcolors, dabs, dbg,
                 None, None, None, None, None, None, None, None, None, None, None)
