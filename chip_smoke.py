@@ -37,7 +37,9 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      configs/default.yml (uncertainty disabled), for 8 train_iteration steps
      (the first a warm-up): step time, loss, PSNR and counters per step,
      peak memory, device time per stage span, and one torch.profiler window
-     of steps; every kernel of the step launches once per step. K1, K2 and
+     of steps; every kernel of the step launches once per step. The set-up's
+     k-NN init statistic (ops/knn.py) is held on the card against the CPU on
+     the points the set-up passed it (rtol 1e-6). K1, K2 and
      K3 are held against their plain versions on the arguments the warm-up
      step passed them, and K2 and K3 timed there beside their plain
      versions, their bounds and (K3) the PyTorch call that computes the
@@ -121,15 +123,16 @@ K2_OPS_CONTRIB, K2_OPS_PER_PASS = 40 + 7, 13 + 3
 # and pass: that pass's dalpha with its divide, dpower, |dmx|, |dmy| and
 # their two sums
 K2_OPS_PASS_ABS = 20
-# K2 need not evaluate a pixel block's pairs with an entry whose alpha
-# reaches 1/255 on none of the block's pixels: its bound counts K1's
-# evaluated and exp work only on the blocks each entry reaches
-# (blend.blend_pair_counts with K2's 8x4 warp blocks), plus one test per
-# (block, entry): the least q = d^T C d on each of the block's 4 pixel rows
-# against 2 log(255 op) (12 operations a row; the log and the -cb/ca divide
-# at the SFU's cost, and 7 more)
-K2_WARP_BLOCK = (8, 4)
-K2_OPS_REACH = 4 * 12 + 2 * SFU_COST + 7
+# K1, K4, P1 and K2 need not evaluate a pixel block's pairs with an entry
+# whose alpha reaches 1/255 on none of the block's pixels: their bounds count
+# K1's evaluated and exp work only on the blocks each entry reaches
+# (blend.blend_pair_counts with the kernels' 8x4 warp blocks), plus one test
+# per (block, entry): the least q = d^T C d on each of the block's 4 pixel
+# rows against 2 log(255 op) (12 operations a row; the log and the -cb/ca
+# divide at the SFU's cost, and 7 more). Each timing line keeps the bound
+# that counts that work on every pair as `bound_ms_all_pairs`
+WARP_BLOCK = (8, 4)
+OPS_REACH = 4 * 12 + 2 * SFU_COST + 7
 # K2 against its plain version, per gradient row: max |error| over max |row|.
 # The kernel sums each entry's values over 256 pixels in another order (a
 # butterfly over each warp's 32 pixels, then the warps' sums), runs T as a
@@ -140,6 +143,9 @@ TOL_ROW = 2e-3
 # share of elements outside atol 5e-3 max|g| + rtol 5e-2 (a corner cull or a
 # T stop that flips between the devices moves single Gaussians); metrics
 TOL_GRAD_ATOL, TOL_GRAD_RTOL, TOL_GRAD_FRAC, TOL_METRIC = 5e-3, 5e-2, 1e-3, 1e-3
+# the k-NN init statistic on the card against the CPU: the same operations,
+# each rounded once (a true division, no fused sums)
+TOL_KNN = 1e-6
 PROFILE_REQUESTS = 5
 CHECK_SKY = 2000            # sky candidates of the check phase's training set
 TRAIN_STEPS, TRAIN_PROFILE_STEPS = 8, 2
@@ -254,7 +260,10 @@ def blend_calls(captured):
     stack = contextlib.ExitStack()
     for name, attr in (("blend_fwd", "blend_forward"), ("blend_bwd", "blend_backward"),
                        ("tier2_merge", "tier2_merge")):
-        def record(*args, name=name):
+        def record(*args, name=name, order=None):
+            # the tile order changes no result: the holds and timings call
+            # the wrappers without it, and the wrappers compute it
+            del order
             args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
             captured[name] = (args[0].clone(),) + args[1:] if name == "tier2_merge" else args
         stack.enter_context(calls_of(blend, attr, record))
@@ -376,20 +385,37 @@ def time_cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def bound_ms(bytes_moved, ops, ops_all_pairs):
+    """(ms, bound_by, ms_all_pairs): the larger of the bytes over the memory
+    rate and the operations over the FP32 rate, and the same with the
+    operations that evaluate every pair."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"),
+            max(t_bytes, ops_all_pairs / PEAK_FP32 * 1e3))
+
+
+def walk_ops(pairs, rest):
+    """The operations of a forward walk (`pairs` from blend.blend_pair_counts
+    with WARP_BLOCK) with `rest` operations after the evaluated and exp work:
+    (with the reach test, evaluating only the blocks each entry reaches;
+    evaluating every pair)."""
+    return (pairs["reach_tests"] * OPS_REACH + pairs["evaluated_reached"] * OPS_EVALUATED
+            + pairs["exp_reached"] * OPS_EXP + rest,
+            pairs["evaluated"] * OPS_EVALUATED + pairs["exp"] * OPS_EXP + rest)
+
+
 def blend_bound_ms(table, tile_counts, walked, n_passes, pairs):
-    """Least time for K1's work on these inputs: the walked entries' table
-    columns read once plus the outputs written once over the memory rate,
-    against the operations these inputs need (`pairs`, by kind, from
-    blend.blend_pair_counts) over the FP32 rate."""
+    """Least time for K1's (and K4's) work on these inputs: the walked
+    entries' table columns read once plus the outputs written once over the
+    memory rate, against the operations these inputs need (`pairs`, by
+    kind, from blend.blend_pair_counts with WARP_BLOCK) over the FP32 rate.
+    Returns (ms, bound_by, ms_all_pairs)."""
     T = int(tile_counts.shape[0])
     walked_entries = int(walked.sum())
     bytes_moved = (walked_entries * table.shape[0] * 4 + T * 8
                    + (3 * n_passes + 1) * 256 * T * 4 + T * 4)
-    ops = (pairs["evaluated"] * OPS_EVALUATED + pairs["exp"] * OPS_EXP
-           + pairs["used"] * OPS_USED
-           + pairs["contributing"] * (OPS_CONTRIB + OPS_PER_PASS * n_passes))
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    return bound_ms(bytes_moved, *walk_ops(pairs, pairs["used"] * OPS_USED + pairs["contributing"]
+                                           * (OPS_CONTRIB + OPS_PER_PASS * n_passes)))
 
 
 def blend_inputs(pkg, n_passes, grid):
@@ -706,9 +732,11 @@ def time_k1(inputs, label):
     ms = time_cuda_ms(lambda: k["wrapper"](*inputs), iters=20)
     plain_ms = time_cuda_ms(lambda: k["plain"](*inputs), iters=3, warmup=1)
     walked = k["wrapper"](*inputs)[2]
-    pairs = blend.blend_pair_counts(*inputs[:4])
-    bound_ms, bound_by = blend_bound_ms(inputs[0], inputs[2], walked, n_passes, pairs)
-    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    pairs = blend.blend_pair_counts(*inputs[:4], warp_block=WARP_BLOCK)
+    bound, bound_by, bound_all_pairs = blend_bound_ms(inputs[0], inputs[2], walked, n_passes,
+                                                      pairs)
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=None,
+               bound_ms_all_pairs=bound_all_pairs)
     emit({"phase": "timing", "kernel": k["name"], "at": label, "passes": n_passes,
           "pairs": pairs, "walked_pairs": int(walked.sum()) * 256,
           "binned_entries": int(inputs[2].sum()), "walked_entries": int(walked.sum()), **out})
@@ -791,16 +819,24 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
     timings of hold_step."""
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.models import gaussian_store as gs
+    from wildgaussians_torch.models import wildgaussians as trainer
     from wildgaussians_torch.spans import SpanTimer
     binning = "partition" if path == "partition_train" else "sort"
     ks = [k for k in kernels() if path in k["paths"]]
     ds, xyz = full_training_set(serve_model, cams)
+    knn_points = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = WildGaussians(train_dataset=ds, config_overrides=dict(uncertainty_mode="disabled",
-                                                                  pallas_binning=binning))
+    with calls_of(trainer, "mean_knn_dist2", lambda pts, *_a, **_k: knn_points.append(pts)):
+        model = WildGaussians(train_dataset=ds, config_overrides=dict(uncertainty_mode="disabled",
+                                                                      pallas_binning=binning))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    if path == "train":
+        check(len(knn_points) == 1 and knn_points[0].device.type == model.device.type,
+              "the set-up's k-NN call")
+        hold_knn(knn_points[0], f"{path} set-up, the surfel scene's points and the sky's")
+    del knn_points
     per_step = launches_per_unit(model, path)
     stages_of = partition_stages(engine_sizes(model)) if binning == "partition" else None
     n_plain = n_steps - profile_steps
@@ -888,6 +924,23 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
     return launches, timings
 
 
+def hold_knn(points, label):
+    """The k-NN init statistic (`ops/knn.py`, the JAX trainer's default
+    native k-NN's function) on the card against the same call on the CPU, on
+    the points the training set-up passed it: within TOL_KNN."""
+    from wildgaussians_torch.ops.knn import mean_knn_dist2
+    t0 = time.perf_counter()
+    card = mean_knn_dist2(points).cpu()
+    t1 = time.perf_counter()
+    cpu = mean_knn_dist2(points.cpu())
+    over = (card - cpu).abs() > TOL_KNN * cpu.abs()
+    emit({"check": "mean_knn_dist2, card vs CPU", "at": label, "points": int(points.shape[0]),
+          "points_differ": int((card != cpu).sum()), "points_over_rtol": int(over.sum()),
+          "max_abs_diff": float((card - cpu).abs().max()), "card_s": t1 - t0,
+          "cpu_s": time.perf_counter() - t1})
+    check(not bool(over.any()), f"mean_knn_dist2 differs between the card and the CPU at {label}")
+
+
 def k2_bound_ms(inputs, walked, pairs):
     """Least time for K2's work on these inputs: the walked entries' table
     columns, the cotangent and forward packs read once and the walked
@@ -895,7 +948,7 @@ def k2_bound_ms(inputs, walked, pairs):
     operations the pairs need over the FP32 rate: the reach test per
     (warp block, entry), K1's evaluated and exp work on the blocks each
     entry reaches, its used work, and the gradient chain per contributing
-    pair (`pairs` from blend.blend_pair_counts with K2_WARP_BLOCK). Returns
+    pair (`pairs` from blend.blend_pair_counts with WARP_BLOCK). Returns
     (ms, bound_by, ms_all_pairs); ms_all_pairs counts the evaluated and exp
     work on every pixel instead, with no reach test."""
     from wildgaussians_torch.ops import blend
@@ -909,12 +962,7 @@ def k2_bound_ms(inputs, walked, pairs):
     rest = (pairs["used"] * OPS_USED
             + pairs["contributing"] * (K2_OPS_CONTRIB + K2_OPS_PER_PASS * n_passes
                                        + (K2_OPS_PASS_ABS * n_passes if pass_abs else 0)))
-    ops = (pairs["reach_tests"] * K2_OPS_REACH + pairs["evaluated_reached"] * OPS_EVALUATED
-           + pairs["exp_reached"] * OPS_EXP + rest)
-    ops_all = pairs["evaluated"] * OPS_EVALUATED + pairs["exp"] * OPS_EXP + rest
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    return (max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"),
-            max(t_bytes, ops_all / PEAK_FP32 * 1e3))
+    return bound_ms(bytes_moved, *walk_ops(pairs, rest))
 
 
 def k3_bound_ms(sums, big_list, bigs):
@@ -939,7 +987,7 @@ def hold_step(captured, radix, stages, label, errs):
     errs["blend_bwd"].append(check_k2(k2, label))
     errs["tier2_merge"].append(check_k3(sums, big_list, bigs, label))
     walked = blend.blend_forward(*fwd)[2]
-    pairs = blend.blend_pair_counts(*k2[:4], warp_block=K2_WARP_BLOCK)
+    pairs = blend.blend_pair_counts(*k2[:4], warp_block=WARP_BLOCK)
     out = {}
     ms = time_cuda_ms(lambda: blend.blend_backward(*k2), iters=10)
     plain_ms = time_cuda_ms(lambda: blend.blend_backward_plain(*k2), iters=1, warmup=1)
@@ -1217,7 +1265,7 @@ def phase_static(errs):
             args = captured[0]
             label = f"static frame, pose 0, {FULL_W}x{FULL_H}, {FULL_N} surfel Gaussians"
             out = k4["wrapper"](*args)
-            plain = k4["plain"](*args)
+            plain = k4["plain"](*args[:6])     # the tile order does not change the result
             torch.cuda.synchronize()
             err = (out - plain).abs().amax(dim=(0, 1))
             over = int((err > TOL_PIXEL).sum())
@@ -1245,33 +1293,35 @@ def phase_static(errs):
             check(equal_k1, "K4 with bg 0 is not K1 bit for bit")
             check(vs_pallas <= TOL_STATIC, f"static frame differs from rasterize_gaussians by "
                                            f"{vs_pallas}")
-            pairs = blend.blend_pair_counts(table, starts, counts, grid)
+            pairs = blend.blend_pair_counts(table, starts, counts, grid, warp_block=WARP_BLOCK)
             # K1's work: the same walk, and the same four output planes
-            bound, by = blend_bound_ms(table, counts, walked, 1, pairs)
+            bound, by, bound_all_pairs = blend_bound_ms(table, counts, walked, 1, pairs)
             timing = dict(ms=time_cuda_ms(lambda: k4["wrapper"](*args), iters=20),
-                          plain_ms=time_cuda_ms(lambda: k4["plain"](*args), iters=3, warmup=1),
-                          bound_ms=bound, bound_by=by, library_ms=None)
+                          plain_ms=time_cuda_ms(lambda: k4["plain"](*args[:6]), iters=3,
+                                                warmup=1),
+                          bound_ms=bound, bound_by=by, library_ms=None,
+                          bound_ms_all_pairs=bound_all_pairs)
             emit({"phase": "timing", "kernel": "blend_fwd_planar", "at": label, "pairs": pairs,
                   "walked_entries": int(walked.sum()), **timing})
             del args, captured, out, plain, zero, ref, color_bg, final_t_bg
             torch.cuda.empty_cache()
+    frame_ms_mean = float(np.mean([p["frame_ms"] for p in per_pose]))
     emit({"phase": "static", "gaussians": FULL_N, "size": [FULL_W, FULL_H],
           "frames_per_pose": STATIC_FRAMES, "per_pose": per_pose,
-          "frame_ms_mean": float(np.mean([p["frame_ms"] for p in per_pose])),
-          "fps_mean": float(np.mean([p["fps"] for p in per_pose]))})
+          "frame_ms_mean": frame_ms_mean,
+          # every pose renders the same number of frames: all frames over all their time
+          "fps": 1e3 / frame_ms_mean})
     return {"blend_fwd_planar": launches}, timing
 
 
 def probe_bound_ms(table, tile_counts, walked, pairs):
     """Least time of P1's work: K1's walk without the colors: the walked
     entries' six geometry rows read once and [T, 3] written, against K1's
-    operations per pair but the weight and the color FMAs."""
+    operations per pair but the weight and the color FMAs (`pairs` with
+    WARP_BLOCK). Returns (ms, bound_by, ms_all_pairs)."""
     T = int(tile_counts.shape[0])
     bytes_moved = int(walked.sum()) * 6 * 4 + T * 8 + T * 12
-    ops = (pairs["evaluated"] * OPS_EVALUATED + pairs["exp"] * OPS_EXP
-           + pairs["used"] * OPS_USED)
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    return bound_ms(bytes_moved, *walk_ops(pairs, pairs["used"] * OPS_USED))
 
 
 def phase_probes(errs):
@@ -1303,8 +1353,8 @@ def phase_probes(errs):
     launches = launch_counts(ks)
     emit({"phase": "probes", "probe_cfin": summaries, "sorts": sorts, "run_scatter": scatter})
 
-    timing = {"probe_cfin": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-                                 per="the random and the surfel frame")}
+    timing = {"probe_cfin": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_ms_all_pairs=0.0,
+                                 library_ms=None, per="the random and the surfel frame")}
     for kind, (table, starts, counts, grid, out) in frames.items():
         label = f"probe_cfin {kind} scene, {FULL_N} Gaussians, {FULL_W}x{FULL_H}"
         walked = blend.blend_forward(table, starts, counts, grid, 1)[2]
@@ -1317,8 +1367,11 @@ def phase_probes(errs):
         check(k1_equal, f"P1's walked counts differ from K1's at {label}")
         check(agree >= 0.999, f"P1 agrees with its plain version on {agree} of tiles at {label}")
         errs["probe_cfin"].append(float((out - plain).abs().max()))
-        pairs = blend.blend_pair_counts(table, starts, counts, grid)
-        bound, by = probe_bound_ms(table, counts, walked, pairs)
+        pairs = blend.blend_pair_counts(table, starts, counts, grid, warp_block=WARP_BLOCK)
+        bound, by, bound_all_pairs = probe_bound_ms(table, counts, walked, pairs)
+        emit({"phase": "timing", "kernel": "probe_cfin", "at": label, "pairs": pairs,
+              "walked_entries": int(walked.sum()), "bound_ms": bound,
+              "bound_ms_all_pairs": bound_all_pairs})
         t = timing["probe_cfin"]
         t["ms"] += time_cuda_ms(lambda: probe_cfin.probe_cfin(table, starts, counts, grid),
                                 iters=20)
@@ -1326,6 +1379,7 @@ def phase_probes(errs):
                                                                           grid),
                                       iters=2, warmup=1)
         t["bound_ms"] += bound
+        t["bound_ms_all_pairs"] += bound_all_pairs
         t["bound_by"] = by
     emit({"phase": "timing", "kernel": "probe_cfin", **timing["probe_cfin"]})
     del frames

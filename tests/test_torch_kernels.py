@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions on the card: K1 (the blend
-forward), K2 (its backward, per gradient row within 2e-3 of the row's
+forward; also on a hand-made table of edge cases, with K4 and P1 held
+against it and against their plain versions), K2 (its backward, per gradient row within 2e-3 of the row's
 largest value: the kernel sums each entry over 256 pixels in another order;
 with and without its two abs rows, whose summed rows stay bit for bit
 those without them; on a surfel table and on a hand-made one with a long
@@ -135,6 +136,83 @@ def _check_k2_edges(dev):
         _check_k2(table, st, ct, grid, n_passes, dev)
 
 
+def _check_fwd_edges(dev):
+    """K1, K4 and P1 on a hand-made 48x32 table of six tiles, against their
+    plain versions and each other (K4 at bg 0 is K1 bit for bit, P1's
+    walked counts are K1's), and K2 on it against its plain version. Tile 0
+    holds 200 entries that stop every pixel inside the forward walk's first
+    256-entry chunk (a mid-chunk exit), and early in its list three edge
+    entries: one whose alpha reaches 1/255 on warp 0's 8x4 block only at
+    its border pixel (7, 2), 5 % above the floor; one with a degenerate
+    conic (ca <= 0); one with a NaN opacity (never used). Tile 1 holds 30
+    entries, tile 2 none, tile 3 400 that stop every pixel in the second
+    chunk, tile 4 5, tile 5 300 faint ones that never stop a pixel: the
+    longest-first order (3, 5, 0, 1, 4, 2) is not raster order. K2 runs on
+    the table with the NaN opacity set to 0 (its plain version's rows are
+    NaN there: dalpha 0 times alpha NaN)."""
+    rng = np.random.default_rng(12)
+    grid = make_grid(48, 32, 16)
+    counts = [200, 30, 0, 400, 5, 300]
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    cols = []
+    for t, (n, op, sigma) in enumerate(zip(counts, (0.065, 0.3, 0.0, 0.03, 0.5, 0.01),
+                                           (100, 4, 1, 100, 3, 50))):
+        ox, oy = 16 * (t % 3), 16 * (t // 3)
+        x, y = ox + rng.uniform(0, 16, n), oy + rng.uniform(0, 16, n)
+        a, b, c = np.full(n, 1.0 / sigma ** 2), np.zeros(n), np.full(n, 1.0 / sigma ** 2)
+        opac = np.full(n, op)
+        if t == 0:
+            # alpha = op exp(-0.5 * 1.4^2 / 0.25) = 1.05 / 255 at (7, 2), below
+            # the floor at every other pixel of warp 0
+            x[1], y[1], a[1], c[1] = 8.4, 2.0, 4.0, 4.0
+            opac[1] = 1.05 / 255.0 * np.exp(0.5 * 1.96 * 4.0)
+            x[2], y[2], a[2], b[2], c[2], opac[2] = 5.0, 9.0, -0.1, 0.02, 0.5, 0.6
+            x[3], y[3], opac[3] = 4.0, 4.0, np.nan
+        cols.append(np.stack([x, y, a, b, c, opac]))
+    geo = np.concatenate(cols, 1).astype(np.float32)
+    st = torch.tensor(starts, device=dev)
+    ct = torch.tensor(np.asarray(counts, np.int32), device=dev)
+    assert tblend.tile_order(ct, grid.num_tiles).tolist() == [3, 5, 0, 1, 4, 2]
+    for n_passes in (1, 2, 3):
+        rgb = rng.uniform(0, 1, (3 * n_passes, geo.shape[1])).astype(np.float32)
+        table = torch.tensor(np.concatenate([geo, rgb]), device=dev)
+        kc, kt, kw = tblend.blend_forward(table, st, ct, grid, n_passes)
+        pc, pt, pw = tblend.blend_forward_plain(table, st, ct, grid, n_passes)
+        zero = tstatic.blend_forward_planar(table, st, ct, grid, n_passes,
+                                            torch.zeros(3, device=dev))
+        bg = torch.tensor([0.3, 0.6, 0.9], device=dev)
+        planar = tstatic.blend_forward_planar(table, st, ct, grid, n_passes, bg)
+        probe = tcfin.probe_cfin(table, st, ct, grid)
+        torch.cuda.synchronize()
+        err = torch.maximum((kc - pc).abs().amax(dim=(0, 3)), (kt - pt).abs())
+        assert err.max().item() <= 1e-4, (n_passes, err.max().item())
+        walked = kw.tolist()
+        assert walked == pw.tolist(), (walked, pw.tolist())
+        assert 3 < walked[0] < 200 and 256 < walked[3] < 400, walked
+        assert walked[1:3] + walked[4:] == [30, 0, 5, 300], walked
+        assert (kt[2] == 1.0).all() and (kc[:, 2] == 0).all()           # no entries
+        plain_planar = tstatic.blend_forward_planar_plain(table, st, ct, grid, n_passes, bg)
+        assert (planar - plain_planar).abs().max().item() <= 1e-4
+        assert torch.equal(zero[:, :3], kc.permute(0, 3, 1, 2))
+        assert torch.equal(zero[:, 3], kt[None].expand(n_passes, -1, -1))
+        assert torch.equal(probe[:, 2], kw)
+        assert torch.equal(probe, tcfin.probe_cfin_plain(table, st, ct, grid))
+        finite = table.clone()
+        finite[5, 3] = 0.0
+        _check_k2(finite, st, ct, grid, n_passes, dev)
+    # the border entry alone: K1 uses it at (7, 2) and at no other pixel of
+    # warp 0 (nor elsewhere in the tile), as the plain version does
+    one = torch.tensor(np.concatenate([geo[:, 1:2], np.ones((3, 1), np.float32)]), device=dev)
+    one_st = torch.tensor([0, 1, 1, 1, 1, 1, 1], dtype=torch.int32, device=dev)
+    one_ct = torch.tensor([1, 0, 0, 0, 0, 0], dtype=torch.int32, device=dev)
+    kc, kt, _kw = tblend.blend_forward(one, one_st, one_ct, grid, 1)
+    pc, pt, _pw = tblend.blend_forward_plain(one, one_st, one_ct, grid, 1)
+    torch.cuda.synchronize()
+    used = (kt[0] < 1.0).nonzero().flatten().tolist()
+    assert used == (pt[0] < 1.0).nonzero().flatten().tolist() and 2 * 16 + 7 in used, used
+    assert all(p % 16 >= 7 for p in used) and (kc - pc).abs().max().item() <= 1e-6
+
+
 def _check_radix(dev):
     """K5 and K6 against their plain versions, pass by pass, on tables with
     invalid keys and a pure-sentinel stretch: a small base, the engine's
@@ -226,6 +304,7 @@ def test_blend_kernel_matches_plain_on_card():
         if n_passes == 1:
             _check_probe(st, grid, kw)
     _check_k2_edges(dev)
+    _check_fwd_edges(dev)
     _check_radix(dev)
     _check_run_scatter(dev)
 

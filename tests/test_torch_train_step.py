@@ -110,8 +110,8 @@ def _port_layout(name, x):
 
 def _f16_rows(blend_backward):
     """K2 with its rows rounded as the JAX exact mode rounds them."""
-    def rounded(*args):
-        rows = blend_backward(*args)
+    def rounded(*args, **kwargs):
+        rows = blend_backward(*args, **kwargs)
         return torch.clamp(rows, -65504.0, 65504.0).half().float()
     return rounded
 
@@ -161,7 +161,10 @@ _ADAM = (jgs.adam_update, gs.adam_update)
 
 
 def test_train_step_matches_jax(monkeypatch, tmp_path):
-    # both sides get the JAX package's Morton-window 3-NN distances
+    # both sides get one array of Morton-window 3-NN distances (the JAX
+    # package's fallback, which needs no g++), so that the step compares the
+    # render, the loss and the gradients alone; test_torch_knn_native.py and
+    # test_torch_train_init.py hold the port's k-NN against the JAX default
     monkeypatch.setattr(jknn_native, "available", lambda: False)
     monkeypatch.setattr(twg, "mean_knn_dist2",
                         lambda t: torch.as_tensor(np.asarray(jknn(jnp.asarray(t.numpy())))))

@@ -49,13 +49,15 @@
 // The tile's entries are staged through shared memory in chunks of 64
 // (coalesced: entry e of every table row by thread e, kept entry-major for
 // 16-byte reads) with, for each (entry, warp), whether the entry's alpha can
-// reach 1/255 on the warp's pixels (reaches); the next chunk is staged while
+// reach 1/255 on the warp's pixels (`wg::reaches` of blend_common.cuh, the
+// test K1's walk makes); the next chunk is staged while
 // the block sums the last one, two barriers a chunk. Each warp walks only
 // the entries that reach its block, and none once its pixels have stopped
 // (both uniform over the warp), in two phases:
 //   1. the forward recurrence: alpha, K1's skips and stop, T before the
-//      entry and the per-pass prefixes (the only values carried from entry
-//      to entry);
+//      entry (K1's own step, `wg::blend_pair`, so that the two kernels take
+//      every decision alike) and the per-pass prefixes (the only values
+//      carried from entry to entry);
 //   2. if any pixel of the warp contributes, the gradient values, as
 //      straight-line code (zero where the pixel does not contribute), then
 //      the warp's sums of the first 16 rows by a reduce-scatter butterfly
@@ -84,20 +86,19 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
-constexpr int kWarps = kPix / 32;
-// a warp's pixels: kWarpW x kWarpH of the tile, the warps 2 x 4 of them
-constexpr int kWarpW = 8;
-constexpr int kWarpH = 4;
+using wg::kAlphaMax;
+using wg::kFull;
+using wg::kPix;
+using wg::kTile;
+using wg::kWarpH;
+using wg::kWarpW;
+using wg::kWarps;
 constexpr int kChunk = 64;
 constexpr int kFan = 16;          // the rows the butterfly sums
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
-constexpr unsigned kFull = 0xffffffffu;
 
 // One step of the butterfly: the lanes with bit 2H set keep values [H, 2H)
 // and send [0, H) to their partner across that bit, the others the reverse;
@@ -122,33 +123,6 @@ __device__ __forceinline__ void reduce_scatter16(float* v, int lane) {
   fold<2>(v, lane);
   fold<1>(v, lane);
   v[0] = __fadd_rn(v[0], __shfl_xor_sync(kFull, v[0], 1));
-}
-
-// Whether an entry's alpha can reach 1/255 on a warp's pixels, the rows
-// [y0, y0 + kWarpH) of the columns [x0, x0 + kWarpW): alpha >= 1/255 needs
-// op exp(power) >= 1/255, that is q = d^T C d <= 2 tau with tau =
-// log(255 op), C the conic and d = mean - pixel. Along a row q is a
-// parabola in dx, convex where ca > 0, whose least value on the row's
-// segment is at its clamped minimiser. The bound carries a margin well
-// above the rounding of this test and of the per-pixel one. An entry with
-// ca <= 0 or a NaN opacity reaches every row (the per-pixel tests decide).
-__device__ __forceinline__ bool reaches(float mx, float my, float ca, float cb, float cc,
-                                        float op, float x0, float y0) {
-  if (!(ca > 0.0f)) return true;
-  const float tau = logf(255.0f * op);
-  if (!(tau >= 0.0f)) return op != op;
-  const float lo = mx - (x0 + (kWarpW - 1)), hi = mx - x0;
-  const float slope = -cb / ca;
-  bool hit = false;
-#pragma unroll
-  for (int r = 0; r < kWarpH; ++r) {
-    const float dy = my - (y0 + r);
-    const float dx = fminf(hi, fmaxf(lo, slope * dy));
-    const float q = (ca * dx + 2.0f * cb * dy) * dx + cc * dy * dy;
-    const float size = ca * dx * dx + 2.0f * fabsf(cb * dx * dy) + cc * dy * dy;
-    hit = hit || q <= 2.002f * tau + 1e-4f * size + 1e-5f;
-  }
-  return hit;
 }
 
 // at most 48 registers a thread: five blocks per SM
@@ -230,7 +204,7 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
       const float* e = src + id / kWarps;
       const int w = id % kWarps;
       reach[id / kWarps][w] =
-          reaches(e[0], e[row_stride], e[2 * row_stride], e[3 * row_stride],
+          wg::reaches(e[0], e[row_stride], e[2 * row_stride], e[3 * row_stride],
                   e[4 * row_stride], e[5 * row_stride],
                   tx0 + (w % (kTile / kWarpW)) * kWarpW, ty0 + (w / (kTile / kWarpW)) * kWarpH);
     }
@@ -263,23 +237,12 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
         f[4 * j + 2] = q4.z;
         f[4 * j + 3] = q4.w;
       }
-      // 1. the forward recurrence: K1's skips and stop, T and the prefixes
-      const float dx = __fsub_rn(f[0], px);
-      const float dy = __fsub_rn(f[1], py);
+      // 1. the forward recurrence: K1's step (blend_common.cuh), so that K1
+      // and K2 take every skip and stop alike; T and the prefixes
+      const wg::Pair q = wg::blend_pair(f[0], f[1], f[2], f[3], f[4], f[5], px, py, T, done);
+      const float dx = q.dx, dy = q.dy, e = q.e, alpha = q.alpha, t_at = q.t_at, w = q.w;
+      const bool c = q.c;
       const float ca = f[2], cb = f[3], cc = f[4];
-      // each operation rounded on its own, as the plain version's are, so
-      // that the alpha floor decides alike
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx), __fmul_rn(__fmul_rn(cc, dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
-      const float e = expf(power);
-      const float alpha = fminf(kAlphaMax, __fmul_rn(f[5], e));
-      const bool use = !done && power <= 0.0f && alpha >= kAlphaMin;
-      const float test_t = __fmul_rn(T, __fsub_rn(1.0f, alpha));
-      done = done || (use && test_t < kTEps);
-      const bool c = use && !(test_t < kTEps);
-      const float t_at = T;
-      T = c ? test_t : T;
-      const float w = __fmul_rn(alpha, t_at);
       float cg[NP], sfx[NP];
 #pragma unroll
       for (int i = 0; i < NP; ++i) {

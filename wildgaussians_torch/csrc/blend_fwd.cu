@@ -13,22 +13,30 @@
 // matmul prefix; here each thread runs the sequential recurrence, which is
 // the same function up to rounding.
 //
-// Design (a simple first version): the tile walk of blend_common.cuh (one
-// 256-thread block per 16x16 tile, one thread per pixel, entries of the
-// attribute-row table [6 + 3 NP, row_stride] staged through shared memory
-// in chunks of 256, a block vote for the early exit), accumulating each
-// pass's color in registers.
+// Bound on this card: per (pixel, entry) pair the walk needs ~20 FP32
+// operations and one exp, and per contributing pair 3 FMAs a pass, against
+// ~(6 + 3 NP) * 4 bytes per entry read once per tile, so the kernel is bound
+// by operations (FP32 and the exp's SFU rate), not by device-memory bytes.
+// A walk over every (pixel, entry) pair spends about half of them on pairs
+// whose entry reaches no pixel of the pair's warp, and a walk that stages
+// and then computes, one block per tile in raster order with a branching
+// inner loop, is bound by latency instead: the longest tiles start late,
+// nothing is in flight while a chunk is walked, and the exp of one entry
+// waits on the last entry's transmittance.
 //
-// Bound on this card: the walk is ~20 FP32 operations and one exp per
-// (pixel, entry) pair against ~(6 + 3 NP) * 4 bytes per entry read once per
-// tile, so the kernel is bound by operations (FP32 and the exp's SFU rate),
-// not by device-memory bytes. What limits this version instead is latency:
-// one block per tile, a serial dependence on T per thread, and the two
-// barriers per chunk.
+// Design: the walk of blend_common.cuh (tiles longest list first, warps on
+// 8x4 pixel blocks walking only the entries that reach them, straight-line
+// batches of the step K2 also takes its decisions with, the next chunk
+// staged by cp.async while this one is walked), accumulating each pass's
+// color in registers with one rounding per FMA. The colors of a tile are
+// then written through shared memory (an 8x4 block of pixels is 4 runs of
+// 96 bytes of the interleaved [256, 3]; the staged copy writes each pass's
+// 3 KB as whole lines).
 //
 // Outputs: colors [NP, T, 256, 3], final_t [T, 256], and walked [T], the
 // number of entries the tile needed: up to and including the last pixel's
-// crossing entry if every pixel stopped, else `count`.
+// crossing entry if every pixel stopped, else `count`. `order` [T] is a
+// permutation of the tiles, the order in which blocks take them.
 //
 // The launch goes on the caller's stream; the kernel allocates nothing and
 // does not synchronize with the host. wg_blend_fwd returns cudaGetLastError().
@@ -37,52 +45,59 @@
 
 namespace {
 
-using wg::kChunk;
 using wg::kPix;
 
 template <int NP>
 __global__ void __launch_bounds__(kPix)
 blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
                  const int* __restrict__ starts, const int* __restrict__ counts,
-                 int grid_x, int num_tiles,
+                 const int* __restrict__ order, int grid_x, int num_tiles,
                  float* __restrict__ colors, float* __restrict__ final_t,
                  int* __restrict__ walked) {
   constexpr int W = 6 + 3 * NP;
-  __shared__ float ent[W][kChunk];
-  __shared__ int last_stop;
+  constexpr int kOut = kPix * 3;   // floats of one pass's colors of a tile
+  static_assert(sizeof(wg::WalkSmem<W>::ent) >= NP * kOut * sizeof(float),
+                "the colors are staged in the entry buffers");
+  __shared__ wg::WalkSmem<W> sm;
 
-  const int t = blockIdx.x;
+  const int t = order[blockIdx.x];
   const int p = threadIdx.x;
   float acc[3 * NP];
 #pragma unroll
   for (int i = 0; i < 3 * NP; ++i) acc[i] = 0.0f;
 
   const wg::WalkEnd end = wg::walk_tile<W>(
-      table, row_stride, starts[t], counts[t], wg::pixel_x(t, p, grid_x),
-      wg::pixel_y(t, p, grid_x), ent, &last_stop, [&](float w, int k) {
+      table, row_stride, starts[t], counts[t], t, grid_x, sm,
+      [&](const wg::Pair& q, const float* f) {
+        if (q.c) {
 #pragma unroll
-        for (int i = 0; i < NP; ++i) {
-          acc[3 * i + 0] += w * ent[6 + 3 * i + 0][k];
-          acc[3 * i + 1] += w * ent[6 + 3 * i + 1][k];
-          acc[3 * i + 2] += w * ent[6 + 3 * i + 2][k];
+          for (int i = 0; i < 3 * NP; ++i) acc[i] = __fmaf_rn(q.w, f[6 + i], acc[i]);
         }
       });
+  const int pix = wg::tile_pixel();
   if (p == 0) walked[t] = end.walked;
+  final_t[static_cast<long long>(t) * kPix + pix] = end.T;
 
+  // the walk's last barrier has freed the entry buffers
+  float* out = reinterpret_cast<float*>(sm.ent);
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    float* out = colors + (static_cast<long long>(i) * num_tiles + t) * kPix * 3 + p * 3;
-    out[0] = acc[3 * i + 0];
-    out[1] = acc[3 * i + 1];
-    out[2] = acc[3 * i + 2];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[i * kOut + pix * 3 + c] = acc[3 * i + c];
   }
-  final_t[static_cast<long long>(t) * kPix + p] = end.T;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    float* dst = colors + (static_cast<long long>(i) * num_tiles + t) * kOut;
+#pragma unroll
+    for (int j = p; j < kOut; j += kPix) dst[j] = out[i * kOut + j];
+  }
 }
 
 }  // namespace
 
 extern "C" int wg_blend_fwd(const float* table, long long row_stride,
-                            const int* starts, const int* counts,
+                            const int* starts, const int* counts, const int* order,
                             int num_tiles, int grid_x, int n_passes,
                             float* colors, float* final_t, int* walked,
                             void* stream) {
@@ -91,15 +106,15 @@ extern "C" int wg_blend_fwd(const float* table, long long row_stride,
   switch (n_passes) {
     case 1:
       blend_fwd_kernel<1><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, grid_x, num_tiles, colors, final_t, walked);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked);
       break;
     case 2:
       blend_fwd_kernel<2><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, grid_x, num_tiles, colors, final_t, walked);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked);
       break;
     case 3:
       blend_fwd_kernel<3><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, grid_x, num_tiles, colors, final_t, walked);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -195,8 +195,26 @@ def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
 
 
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def tile_order(tile_counts: torch.Tensor, num_tiles: int) -> torch.Tensor:
+    """The order in which the blend kernels take the tiles: longest list
+    first, int32 [num_tiles]."""
+    return torch.argsort(tile_counts[:num_tiles], descending=True).to(torch.int32)
+
+
+def _check_tiles(name, table, tile_starts, tile_counts, order, T):
+    """Raise unless the tile arrays (and `order`, if given) are contiguous
+    int32 tensors of >= T tiles (order: exactly T) on the table's device."""
+    for arg, x in (("tile_starts", tile_starts), ("tile_counts", tile_counts)):
+        if x.dtype != torch.int32 or not x.is_contiguous() or x.shape[0] < T or x.device != table.device:
+            raise ValueError(f"{name}: {arg} must be a contiguous int32 tensor of >= {T} tiles on "
+                             f"{table.device}")
+    if order is not None and (order.dtype != torch.int32 or not order.is_contiguous()
+                              or tuple(order.shape) != (T,) or order.device != table.device):
+        raise ValueError(f"{name}: order must be a contiguous int32 [{T}] on {table.device}")
 
 
 def _kernel():
@@ -208,11 +226,14 @@ def _kernel():
 
 
 def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
-                  tile_counts: torch.Tensor, grid: TileGrid, n_passes: int):
+                  tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
+                  order: Optional[torch.Tensor] = None):
     """K1: blend every tile's depth-sorted entries for 1-3 color passes.
 
     table [6 + 3 n_passes, N] f32 (rows x, y, conic a/b/c, opacity, then
-    r, g, b per pass); tile_starts [T(+1)] and tile_counts [T] int32.
+    r, g, b per pass); tile_starts [T(+1)] and tile_counts [T] int32;
+    order [T] int32, the order in which the kernel takes the tiles
+    (`tile_order`, computed here when None; it does not change the result).
     Returns (colors [n_passes, T, 256, 3], final_t [T, 256], walked [T]).
     A CPU table runs the plain version; a CUDA table launches the kernel and
     adds one to `blend_forward.launches`.
@@ -230,9 +251,9 @@ def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
         raise ValueError(f"table must be f32 [{6 + 3 * n_passes}, N], got {table.dtype} {tuple(table.shape)}")
     if table.stride(1) != 1:
         raise ValueError("table rows must be contiguous")
-    for name, x in (("tile_starts", tile_starts), ("tile_counts", tile_counts)):
-        if x.dtype != torch.int32 or not x.is_contiguous() or x.shape[0] < T or x.device != table.device:
-            raise ValueError(f"{name} must be a contiguous int32 tensor of >= {T} tiles on {table.device}")
+    _check_tiles("blend_forward", table, tile_starts, tile_counts, order, T)
+    if order is None:
+        order = tile_order(tile_counts, T)
     colors = torch.empty((n_passes, T, P_PIX, 3), dtype=torch.float32, device=table.device)
     final_t = torch.empty((T, P_PIX), dtype=torch.float32, device=table.device)
     walked = torch.empty((T,), dtype=torch.int32, device=table.device)
@@ -240,7 +261,7 @@ def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), T, grid.grid_x, n_passes,
+                 tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, n_passes,
                  colors.data_ptr(), final_t.data_ptr(), walked.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed with CUDA error {err}")
@@ -365,12 +386,13 @@ def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
                    tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
                    gcol: torch.Tensor, gte: torch.Tensor, colors: torch.Tensor,
                    final_t: torch.Tensor, ndc_scale: Tuple[float, float],
-                   gte_pass: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   gte_pass: Optional[torch.Tensor] = None,
+                   order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: the per-entry gradient rows [7 + 3 n_passes, N] of the blend, and
     with gte_pass the 2 per-pass abs rows after them (see
-    blend_backward_plain for the arguments). A CPU table runs the plain
-    version; a CUDA table launches the kernel in `csrc/blend_bwd.cu` and
-    adds one to `blend_backward.launches`."""
+    blend_backward_plain for the arguments; `order` as blend_forward's). A
+    CPU table runs the plain version; a CUDA table launches the kernel in
+    `csrc/blend_bwd.cu` and adds one to `blend_backward.launches`."""
     if table.device.type == "cpu":
         return blend_backward_plain(table, tile_starts, tile_counts, grid, n_passes,
                                     gcol, gte, colors, final_t, ndc_scale, gte_pass)
@@ -385,9 +407,7 @@ def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
         raise ValueError(f"table must be f32 [{6 + 3 * n_passes}, N], got {table.dtype} {tuple(table.shape)}")
     if table.stride(1) != 1:
         raise ValueError("table rows must be contiguous")
-    for name, x in (("tile_starts", tile_starts), ("tile_counts", tile_counts)):
-        if x.dtype != torch.int32 or not x.is_contiguous() or x.shape[0] < T or x.device != table.device:
-            raise ValueError(f"{name} must be a contiguous int32 tensor of >= {T} tiles on {table.device}")
+    _check_tiles("blend_backward", table, tile_starts, tile_counts, order, T)
     _check_f32("gcol", gcol, (n_passes, T, P_PIX, 3), table.device)
     _check_f32("colors", colors, (n_passes, T, P_PIX, 3), table.device)
     _check_f32("gte", gte, (T, P_PIX), table.device)
@@ -396,8 +416,8 @@ def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
         _check_f32("gte_pass", gte_pass, (n_passes, T, P_PIX), table.device)
     grads = torch.zeros((grad_rows(n_passes, gte_pass is not None), table.shape[1]),
                         dtype=torch.float32, device=table.device)
-    # the kernel takes the tiles longest list first
-    order = torch.argsort(tile_counts[:T], descending=True).to(torch.int32)
+    if order is None:
+        order = tile_order(tile_counts, T)
     fn = _bwd_kernel()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -510,10 +530,12 @@ class _DifferentiableBlend(torch.autograd.Function):
                 mean2d, conic, opacity, colors_stack, depth, rect_min, rect_max,
                 tiles_touched, valid)
         with span("blend_kernel"):
+            # K1 and K2 take the tiles in one order, computed once a step
+            order = tile_order(st.tile_counts, grid.num_tiles)
             colors, final_t, walked = blend_forward(st.table, st.tile_starts, st.tile_counts,
-                                                    grid, n_passes)
+                                                    grid, n_passes, order=order)
         ctx.save_for_backward(st.table, st.sorted_flat, st.tile_starts, st.tile_counts,
-                              st.big_list, colors, final_t, bg)
+                              st.big_list, colors, final_t, bg, order)
         ctx.grid, ctx.ndc_scale, ctx.n = grid, ndc_scale, n
         ctx.sizes = _sort_engine_sizes(grid, n, max_tiles_per_gaussian, d_small, big_fraction)
         aux.update(table=st.table, tile_starts=st.tile_starts, tile_counts=st.tile_counts,
@@ -523,7 +545,7 @@ class _DifferentiableBlend(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_final_t):
-        table, sorted_flat, tile_starts, tile_counts, big_list, colors, final_t, bg = \
+        table, sorted_flat, tile_starts, tile_counts, big_list, colors, final_t, bg, order = \
             ctx.saved_tensors
         n_passes = colors.shape[0]
         sizes = ctx.sizes
@@ -533,7 +555,7 @@ class _DifferentiableBlend(torch.autograd.Function):
         gte = (g_final_t + torch.einsum("itpc,c->tp", g_color, bg)).contiguous()
         with span("blend_bwd_kernel"):
             eg = blend_backward(table, tile_starts, tile_counts, ctx.grid, n_passes,
-                                g_color, gte, colors, final_t, ctx.ndc_scale)
+                                g_color, gte, colors, final_t, ctx.ndc_scale, order=order)
         dbg = torch.einsum("itpc,tp->c", g_color, final_t)
         with span("unsort"):
             # the sort engine's order is a permutation of the slots; slots

@@ -1,9 +1,16 @@
 """Mean squared distance to the 3 nearest neighbors (init-time statistic).
 
-Counterpart of `wildgaussians_tpu/ops/knn.py` (`mean_knn_dist2`, :38):
-Morton-sort the points and search a +/-window band of the sorted order for
-each point's k nearest neighbors. Plain torch on the caller's device; it
-seeds the initial log-scales, so exactness is not required.
+Counterpart of the JAX trainer's default k-NN, the native simple-knn
+(`native/simple_knn.cpp`, loaded by `wildgaussians_tpu/ops/knn_native.py`):
+the JAX trainer seeds its scales from it whenever g++ can build it
+(`wildgaussians_tpu/models/wildgaussians.py:194-199`), and falls back to
+`wildgaussians_tpu/ops/knn.py` only where it cannot. Morton-sort the points
+(ties by index) and search a +/-window band of the sorted order for each
+point's k nearest neighbors. The Morton cell is quantised as the native
+code does it, `(p - min) * (1023 / range)`: the fallback's
+`((p - min) / range) * 1023` rounds a few points into another cell, which
+moves the Morton order and with it the neighbors the window finds. Plain
+torch on the caller's device.
 """
 import torch
 
@@ -21,11 +28,16 @@ def _expand_bits_10(v: torch.Tensor) -> torch.Tensor:
 
 
 def morton_codes(points: torch.Tensor) -> torch.Tensor:
-    """10-bit-per-axis Morton codes [N] int64."""
+    """10-bit-per-axis Morton codes [N] int64, quantised as
+    `native/simple_knn.cpp` (:62-76) does: the cell is (p - min) * inv,
+    inv = 1023 / range (0 where range <= 1e-12), clamped to [0, 1023] and
+    truncated."""
     mn = points.min(dim=0).values
-    mx = points.max(dim=0).values
-    rel = (points - mn) / torch.clamp_min(mx - mn, 1e-12)
-    q = torch.clamp(rel * 1023.0, 0, 1023).to(torch.int64)
+    rng = points.max(dim=0).values - mn
+    # a true division: torch computes `1023.0 / rng` as rng.reciprocal() * 1023,
+    # one ulp off the native code's quotient, which moves points between cells
+    inv = torch.where(rng > 1e-12, torch.full_like(rng, 1023.0) / rng, torch.zeros_like(rng))
+    q = torch.clamp((points - mn) * inv, 0, 1023).to(torch.int64)
     return (_expand_bits_10(q[:, 0])
             | (_expand_bits_10(q[:, 1]) << 1)
             | (_expand_bits_10(q[:, 2]) << 2))

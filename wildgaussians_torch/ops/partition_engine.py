@@ -246,10 +246,12 @@ class PartitionBlend(torch.autograd.Function):
         nkey = pt.sizes.nkey
         attrs = pt.table[nkey:nkey + 6 + 3 * n_passes]
         with span("blend_kernel"):
+            # K1 and K2 take the tiles in one order, computed once a step
+            order = blend.tile_order(pt.tile_counts, grid.num_tiles)
             colors, final_t, walked = blend.blend_forward(attrs, pt.tile_starts, pt.tile_counts,
-                                                          grid, n_passes)
+                                                          grid, n_passes, order=order)
         ctx.save_for_backward(pt.table, pt.tile_starts, pt.tile_counts, pt.big_list, colors,
-                              final_t, bg)
+                              final_t, bg, order)
         ctx.metas = (pt.presort, pt.rank, pt.tile)
         ctx.grid, ctx.ndc_scale, ctx.n, ctx.sizes = grid, ndc_scale, n, pt.sizes
         aux.update(table=attrs, entry_table=pt.table, tile_starts=pt.tile_starts,
@@ -259,7 +261,7 @@ class PartitionBlend(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_final_t):
-        table, starts, counts, big_list, colors, final_t, bg = ctx.saved_tensors
+        table, starts, counts, big_list, colors, final_t, bg, order = ctx.saved_tensors
         pmeta, rmeta, tmeta = ctx.metas
         sz, n = ctx.sizes, ctx.n
         n_passes = colors.shape[0]
@@ -276,7 +278,7 @@ class PartitionBlend(torch.autograd.Function):
             # engine's live mask (rasterize_pallas.py:2535-2542)
             eg = blend.blend_backward(table[sz.nkey:sz.nkey + 6 + 3 * n_passes], starts, counts,
                                       ctx.grid, n_passes, g_color, gte, colors, final_t,
-                                      ctx.ndc_scale, gte_pass)
+                                      ctx.ndc_scale, gte_pass, order=order)
             # the y abs sum replaces the fused row 6 (grad_rows' layout), so
             # that rows [0, G) go back through the partitions
             eg[6].copy_(eg[G0 + 1])

@@ -194,7 +194,10 @@ class StaticBinning(NamedTuple):
     tile_counts: torch.Tensor  # [T] int32
     # the JAX package normalises colors for its rgb10 rows and multiplies
     # back in render_static; the port's rows are f32, so the scale is 1
-    color_scale: torch.Tensor = torch.tensor(1.0)
+    color_scale: torch.Tensor
+    # [T] int32, the order in which K4 takes the tiles (longest list first),
+    # computed once per binned pose
+    tile_order: torch.Tensor
 
 
 def bin_static(means3d, scales, rotations, opacities, colors, camera: CameraParams,
@@ -213,12 +216,11 @@ def bin_static(means3d, scales, rotations, opacities, colors, camera: CameraPara
     grid = make_grid(width, height, tile_size)
     bin_fn, _blend = _make_static_renderer(grid, chunk, means3d.shape[0],
                                            max_tiles_per_gaussian, 1, d_small, big_fraction)
-    table, starts, counts = bin_fn(pre.mean2d, pre.conic, pre.opacity, colors[None], pre.depth,
-                                   pre.rect_min, pre.rect_max,
-                                   torch.clamp_max(pre.tiles_touched, max_tiles_per_gaussian),
-                                   pre.valid)
+    table, starts, counts, order = bin_fn(
+        pre.mean2d, pre.conic, pre.opacity, colors[None], pre.depth, pre.rect_min, pre.rect_max,
+        torch.clamp_max(pre.tiles_touched, max_tiles_per_gaussian), pre.valid)
     return StaticBinning(table, starts, counts,
-                         torch.ones((), dtype=torch.float32, device=table.device))
+                         torch.ones((), dtype=torch.float32, device=table.device), order)
 
 
 def render_static(binning: StaticBinning, n: int, width: int, height: int, *, bg=None,
@@ -237,6 +239,6 @@ def render_static(binning: StaticBinning, n: int, width: int, height: int, *, bg
     scale = binning.color_scale.to(dev)
     # blend(c / s, bg / s) * s: compositing is linear in color (s = 1 here)
     pack = blend_fn(binning.table, binning.tile_starts, binning.tile_counts,
-                    (bg / scale).to(torch.float32).contiguous())[0]          # [4, T, 256]
+                    (bg / scale).to(torch.float32).contiguous(), binning.tile_order)[0]  # [4, T, 256]
     color = torch.stack([tiles_to_image(pack[c], grid) for c in range(3)], dim=-1)
     return color * scale, tiles_to_image(pack[3], grid)

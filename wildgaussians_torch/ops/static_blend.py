@@ -13,12 +13,12 @@ tensor goes to the plain version, a CUDA tensor to the kernel (or an
 error). There is no fallback from one to the other.
 """
 import ctypes
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from . import _build
-from .blend import P_PIX, blend_forward_plain
+from .blend import P_PIX, _check_tiles, blend_forward_plain, tile_order
 from .rasterize_tiled import TileGrid
 from .sort_engine import _build_sorted_table
 
@@ -36,8 +36,8 @@ def blend_forward_planar_plain(table: torch.Tensor, tile_starts: torch.Tensor,
 
 
 _PLANAR_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p]
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _kernel():
@@ -49,13 +49,14 @@ def _kernel():
 
 def blend_forward_planar(table: torch.Tensor, tile_starts: torch.Tensor,
                          tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
-                         bg: torch.Tensor) -> torch.Tensor:
+                         bg: torch.Tensor, order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4: blend every tile's depth-sorted entries for 1-3 color passes into
     the planar [n_passes, 4, T, 256] (r, g, b with final_T bg added, then
     final_T). table [6 + 3 n_passes, N] f32 as K1's; bg [3] f32 on the
-    table's device (read by the kernel: no host sync). A CPU table runs the
-    plain version; a CUDA table launches the kernel in
-    `csrc/blend_fwd_planar.cu` and adds one to
+    table's device (read by the kernel: no host sync); order [T] int32 the
+    order in which the kernel takes the tiles (`blend.tile_order`, computed
+    here when None). A CPU table runs the plain version; a CUDA table
+    launches the kernel in `csrc/blend_fwd_planar.cu` and adds one to
     `blend_forward_planar.launches`."""
     if table.device.type == "cpu":
         return blend_forward_planar_plain(table, tile_starts, tile_counts, grid, n_passes, bg)
@@ -71,21 +72,19 @@ def blend_forward_planar(table: torch.Tensor, tile_starts: torch.Tensor,
                          f"{tuple(table.shape)}")
     if table.stride(1) != 1:
         raise ValueError("table rows must be contiguous")
-    for name, x in (("tile_starts", tile_starts), ("tile_counts", tile_counts)):
-        if x.dtype != torch.int32 or not x.is_contiguous() or x.shape[0] < T \
-                or x.device != table.device:
-            raise ValueError(f"{name} must be a contiguous int32 tensor of >= {T} tiles on "
-                             f"{table.device}")
+    _check_tiles("blend_forward_planar", table, tile_starts, tile_counts, order, T)
     if bg.dtype != torch.float32 or tuple(bg.shape) != (3,) or not bg.is_contiguous() \
             or bg.device != table.device:
         raise ValueError(f"bg must be a contiguous f32 [3] on {table.device}")
+    if order is None:
+        order = tile_order(tile_counts, T)
     out = torch.empty((n_passes, 4, T, P_PIX), dtype=torch.float32, device=table.device)
     fn = _kernel()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), T, grid.grid_x, n_passes, bg.data_ptr(),
-                 out.data_ptr(), stream)
+                 tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, n_passes,
+                 bg.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"blend_fwd_planar kernel launch failed with CUDA error {err}")
     blend_forward_planar.launches += 1
@@ -102,10 +101,12 @@ def _make_static_renderer(grid: TileGrid, K: int, n: int, d_max: int, n_passes: 
     Returns (bin_fn, blend_fn):
 
       bin_fn(mean2d, conic, opacity, colors_stack, depth, rect_min, rect_max,
-             tiles_touched, valid) -> (table, starts, counts), the sort
-             engine's table (`_build_sorted_table`) of n Gaussians;
-      blend_fn(table, starts, counts, bg) -> [n_passes, 4, T, 256] planar
-             (r, g, b with final_T bg folded in, then final_T) from K4.
+             tiles_touched, valid) -> (table, starts, counts, order), the sort
+             engine's table (`_build_sorted_table`) of n Gaussians and the
+             order in which K4 takes its tiles (`blend.tile_order`), computed
+             once for every frame of the pose;
+      blend_fn(table, starts, counts, bg, order) -> [n_passes, 4, T, 256]
+             planar (r, g, b with final_T bg folded in, then final_T) from K4.
 
     Forward only. K must be the kernels' 256-entry chunk."""
     if K != 256:
@@ -116,9 +117,10 @@ def _make_static_renderer(grid: TileGrid, K: int, n: int, d_max: int, n_passes: 
         st = _build_sorted_table(grid, n, d_max, n_passes, d_small, big_fraction, mean2d,
                                  conic, opacity, colors_stack, depth, rect_min, rect_max,
                                  tiles_touched, valid)
-        return st.table, st.tile_starts, st.tile_counts
+        return st.table, st.tile_starts, st.tile_counts, tile_order(st.tile_counts,
+                                                                   grid.num_tiles)
 
-    def blend_fn(table, starts, counts, bg):
-        return blend_forward_planar(table, starts, counts, grid, n_passes, bg)
+    def blend_fn(table, starts, counts, bg, order):
+        return blend_forward_planar(table, starts, counts, grid, n_passes, bg, order)
 
     return bin_fn, blend_fn

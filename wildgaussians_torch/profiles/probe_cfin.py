@@ -30,7 +30,7 @@ import torch
 
 from ..cameras import make_camera_params
 from ..ops import _build
-from ..ops.blend import blend_walked_plain
+from ..ops.blend import _check_tiles, blend_walked_plain, tile_order
 from ..ops.gaussians import compute_cov3d, preprocess
 from ..ops.rasterize_tiled import TileGrid, make_grid
 from ..ops.sort_engine import _build_sorted_table
@@ -44,8 +44,8 @@ D_MAX, D_SMALL, BIG_FRACTION = 10, 4, 0.16
 def probe_cfin_plain(table: torch.Tensor, tile_starts: torch.Tensor,
                      tile_counts: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     """Plain PyTorch P1 from the blend's batched walk (K1's walked counts):
-    the walk of a tile stops after the chunk that holds its last needed
-    entry, so c_fin = ceil(walked / 256). Returns int32 [T, 3]."""
+    a tile needs the 256-entry chunks up to the one that holds its last
+    needed entry, so c_fin = ceil(walked / 256). Returns int32 [T, 3]."""
     walked = blend_walked_plain(table, tile_starts, tile_counts, grid)
     n_chunks = (tile_counts + (K - 1)) // K
     c_fin = (walked + (K - 1)) // K
@@ -53,7 +53,7 @@ def probe_cfin_plain(table: torch.Tensor, tile_starts: torch.Tensor,
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _kernel():
@@ -67,7 +67,7 @@ def probe_cfin(table: torch.Tensor, tile_starts: torch.Tensor, tile_counts: torc
                grid: TileGrid) -> torch.Tensor:
     """P1 on the blend table [>= 6, N] f32 (rows x, y, conic a, b, c,
     opacity first; further rows are not read): per tile int32 [T, 3] =
-    (c_fin: 256-entry chunks walked before every pixel had stopped, counted
+    (c_fin: the 256-entry chunks the tile needs, ceil(walked / 256), counted
     from the tile's start; n_chunks; walked: K1's needed entries). A CPU
     table runs the plain version; a CUDA table launches the kernel in
     `csrc/probe_cfin.cu` and adds one to `probe_cfin.launches`."""
@@ -82,17 +82,16 @@ def probe_cfin(table: torch.Tensor, tile_starts: torch.Tensor, tile_counts: torc
             or table.stride(1) != 1:
         raise ValueError(f"table must be f32 [>= 6, N] with contiguous rows, got {table.dtype} "
                          f"{tuple(table.shape)}")
-    for name, x in (("tile_starts", tile_starts), ("tile_counts", tile_counts)):
-        if x.dtype != torch.int32 or not x.is_contiguous() or x.shape[0] < T \
-                or x.device != table.device:
-            raise ValueError(f"{name} must be a contiguous int32 tensor of >= {T} tiles on "
-                             f"{table.device}")
+    _check_tiles("probe_cfin", table, tile_starts, tile_counts, None, T)
+    # the kernel takes the tiles longest list first, as K1 does
+    order = tile_order(tile_counts, T)
     out = torch.empty((T, 3), dtype=torch.int32, device=table.device)
     fn = _kernel()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), T, grid.grid_x, out.data_ptr(), stream)
+                 tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, out.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"probe_cfin kernel launch failed with CUDA error {err}")
     probe_cfin.launches += 1
