@@ -17,6 +17,11 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      K3), the whole render path on the card against the same path on the
      CPU, and one training step on the card against the same step on the
      CPU from the same init (every parameter's gradient and the metrics);
+     then the store functions on the card against the CPU, from the CPU
+     step's store copied to each device with the same split normals:
+     densify_and_prune (both abs-gradient modes, size pruning on; alive masks
+     and stats equal unless a deciding value lies within 1e-6 of its
+     threshold, at most 2 such slots), reset_opacity and grow_capacity;
      then the same render path and training step with `pallas_binning:
      partition`, and K5 and K6 against their plain versions (bit for bit)
      on every call the card's partition step made;
@@ -58,7 +63,15 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      the same function. K5 runs 15 times per request and per step, K6 15
      times per step. The partition step's K2 also writes the two per-pass
      abs rows (each summed over the passes);
-  8. "raster", the rasterizer API at bench.py's shapes (1.5M Gaussians,
+  8. "densify" and "partition_densify": step 6's set-up under each engine
+     with densify_from_iter 1, densification_interval 2,
+     opacity_reset_interval 3 and the capacity of its live count rounded up
+     to 256, for 5 steps: iteration 2 densifies and grows the store, 3
+     resets the opacities, 4 densifies with size pruning, 5 trains on the
+     grown store. Per step its ms, loss, the densify / reset_opacity /
+     grow_capacity spans, stats and capacity; K1-K3 (and K5, K6) held
+     against their plain versions on the last step's arguments;
+  9. "raster", the rasterizer API at bench.py's shapes (1.5M Gaussians,
      1280x720, d_max 10, d_small 4): rasterize_gaussians(backend="pallas")
      on the random and the surfel scene, 8 forward-only calls, 4 forward +
      backward calls of an L1 loss (sort engine) and one forward + backward
@@ -66,13 +79,13 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      overflow; K1-K3 (and K5, K6) held on the first call of each kind; then
      one GaussianRasterizer call with SH degree 3 against
      rasterize_gaussians on the colors it precomputes;
-  9. "static", the sort-once / blend-many viewer path on the surfel scene:
+ 10. "static", the sort-once / blend-many viewer path on the surfel scene:
      bin_static once per pose, 20 render_static frames per pose with the
      background chained from the previous frame (bench.py's static mode):
      bin ms, ms per frame and frames per second; K4 held against its plain
      version, against K1 (bit for bit with bg 0) and the frame against
      rasterize_gaussians (within 1e-6), and timed;
- 10. "probes": P1 on the random and the surfel scene (what
+ 11. "probes": P1 on the random and the surfel scene (what
      `python -m wildgaussians_torch.profiles.probe_cfin` prints), the
      torch.sort sections of probe_sortdesign and P2's five run-scatter
      configurations; P1 held against K1's walked counts and its plain
@@ -96,7 +109,7 @@ import numpy as np
 import torch
 
 SEED = 0
-DEVICE = "cuda"             # where the scenes of the raster, static and probes phases live
+DEVICE = "cuda"             # the card (store checks; the raster, static and probes scenes)
 CHECK_N, CHECK_W, CHECK_H = 20_000, 512, 384
 FULL_N, FULL_W, FULL_H = 1_500_000, 1280, 720
 # K1 against its plain version: a pixel can differ only where an alpha sits
@@ -146,10 +159,24 @@ TOL_GRAD_ATOL, TOL_GRAD_RTOL, TOL_GRAD_FRAC, TOL_METRIC = 5e-3, 5e-2, 1e-3, 1e-3
 # the k-NN init statistic on the card against the CPU: the same operations,
 # each rounded once (a true division, no fused sums)
 TOL_KNN = 1e-6
+# the store functions on the card against the CPU (densify_and_prune,
+# reset_opacity): a slot whose deciding value lies within TOL_DECIDE
+# (relative) of its threshold may be decided either way (exp, sigmoid and log
+# round differently on the two devices); at most TOL_NEAR such slots. Live
+# parameters within TOL_STORE_RTOL, with an absolute floor of TOL_STORE_ATOL
+# times the tensor's largest |value|: a split child's position is the
+# parent's plus an offset that may cancel it, so an ulp of the offset can be
+# a large part of a small coordinate
+TOL_DECIDE, TOL_NEAR, TOL_STORE_RTOL, TOL_STORE_ATOL = 1e-6, 2, 1e-5, 1e-6
 PROFILE_REQUESTS = 5
 CHECK_SKY = 2000            # sky candidates of the check phase's training set
 TRAIN_STEPS, TRAIN_PROFILE_STEPS = 8, 2
 PARTITION_REQUESTS, PARTITION_STEPS = 4, 4
+# the densify phase's schedule: iteration 2 densifies (and grows the store),
+# 3 resets the opacities, 4 densifies with size pruning, 5 trains on the
+# grown store
+DENSIFY_STEPS = 5
+DENSIFY_OVERRIDES = dict(densify_from_iter=1, densification_interval=2, opacity_reset_interval=3)
 # the rasterizer API, the static viewer path and the probes run at bench.py's
 # knobs: d_max 10, d_small 4 (big fraction 0.16), chunk 256
 RASTER_D_MAX, RASTER_D_SMALL = 10, 4
@@ -192,18 +219,19 @@ def kernels():
     return [dict(name="blend_fwd", route="cuda", source="wildgaussians_torch/csrc/blend_fwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:376",
                  wrapper=blend.blend_forward, plain=blend.blend_forward_plain,
-                 paths=("serve", "train", "partition_serve", "partition_train", "raster")),
+                 paths=("serve", "train", "partition_serve", "partition_train", "densify",
+                        "partition_densify", "raster")),
             dict(name="blend_bwd", route="cuda", source="wildgaussians_torch/csrc/blend_bwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:493",
                  also_replaces=["wildgaussians_tpu/ops/rasterize_pallas.py:482",
                                 "wildgaussians_tpu/ops/rasterize_pallas.py:501"],
                  wrapper=blend.blend_backward, plain=blend.blend_backward_plain,
-                 paths=("train", "partition_train", "raster")),
+                 paths=("train", "partition_train", "densify", "partition_densify", "raster")),
             dict(name="tier2_merge", route="cuda",
                  source="wildgaussians_torch/csrc/tier2_merge.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:872",
                  wrapper=blend.tier2_merge, plain=blend.tier2_merge_plain,
-                 paths=("train", "partition_train", "raster")),
+                 paths=("train", "partition_train", "densify", "partition_densify", "raster")),
             dict(name="blend_fwd_planar", route="cuda",
                  source="wildgaussians_torch/csrc/blend_fwd_planar.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:1472",
@@ -212,12 +240,12 @@ def kernels():
             dict(name="radix_pass", route="cuda", source="wildgaussians_torch/csrc/radix_pass.cu",
                  replaces="wildgaussians_tpu/ops/partition.py:173",
                  wrapper=partition.radix_pass, plain=partition.radix_pass_plain,
-                 paths=("partition_serve", "partition_train", "raster")),
+                 paths=("partition_serve", "partition_train", "partition_densify", "raster")),
             dict(name="radix_unpass", route="cuda",
                  source="wildgaussians_torch/csrc/radix_unpass.cu",
                  replaces="wildgaussians_tpu/ops/partition.py:376",
                  wrapper=partition.radix_unpass, plain=partition.radix_unpass_plain,
-                 paths=("partition_train", "raster")),
+                 paths=("partition_train", "partition_densify", "raster")),
             dict(name="probe_cfin", route="cuda", source="wildgaussians_torch/csrc/probe_cfin.cu",
                  replaces="tools/profiles/probe_cfin.py:95",
                  wrapper=probe_cfin.probe_cfin, plain=probe_cfin.probe_cfin_plain,
@@ -233,8 +261,18 @@ def kernel_by_name(name):
 
 
 @contextlib.contextmanager
+def replaced(module, attr, fn):
+    """Within the block, `module.attr` is `fn`."""
+    orig = getattr(module, attr)
+    setattr(module, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(module, attr, orig)
+
+
 def calls_of(module, attr, record):
-    """Within the block, a call of `module.attr` first hands its arguments
+    """A context in which a call of `module.attr` first hands its arguments
     to `record`."""
     orig = getattr(module, attr)
 
@@ -244,11 +282,18 @@ def calls_of(module, attr, record):
     # one attribute dict for both: a kernel wrapper counts its launches on
     # its module-level name, which is `call` within the block
     call.__dict__ = orig.__dict__
-    setattr(module, attr, call)
-    try:
-        yield
-    finally:
-        setattr(module, attr, orig)
+    return replaced(module, attr, call)
+
+
+def results_of(module, attr, record):
+    """A context in which a call of `module.attr` hands its result to `record`."""
+    orig = getattr(module, attr)
+
+    def call(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        record(out)
+        return out
+    return replaced(module, attr, call)
 
 
 def blend_calls(captured):
@@ -457,7 +502,7 @@ def check_k2(inputs, label):
 
 
 def check_k3(sums, big_list, bigs, label):
-    """K3 against its plain version: exactly."""
+    """K3 against its plain version: exactly, on a pool with a valid slot."""
     k = kernel_by_name("tier2_merge")
     out = k["wrapper"](sums.clone(), big_list, bigs)
     plain = k["plain"](sums.clone(), big_list, bigs)
@@ -467,7 +512,8 @@ def check_k3(sums, big_list, bigs, label):
     emit({"check": "tier2_merge", "at": label, "rows": int(sums.shape[0]), "n": int(sums.shape[1]),
           "m_cap": int(big_list.shape[0]), "valid": valid, "max_abs_err": err,
           "equal": bool(torch.equal(out, plain))})
-    check(torch.equal(out, plain) and valid > 0, f"tier2_merge differs from its plain version at {label}")
+    check(torch.equal(out, plain), f"tier2_merge differs from its plain version at {label}")
+    check(valid > 0, f"tier2_merge's pool is empty at {label}")
     return err
 
 
@@ -505,7 +551,8 @@ def check_train_step(gpu_model, cams, binning="sort"):
     copied to the card), at active SH degree 3 with anisotropic scales so
     that every parameter gets gradient: every parameter's gradient, read
     where the step hands it to Adam, and the metrics. Returns the K5/K6
-    calls of the card's step (radix_calls)."""
+    calls of the card's step (radix_calls) and the CPU model after its
+    step."""
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.models import gaussian_store as gs
     images = [gpu_model.render(cam)["color"] for cam in cams]
@@ -558,7 +605,164 @@ def check_train_step(gpu_model, cams, binning="sort"):
           "gradients": per_param})
     check(all(e <= TOL_METRIC for e in metric_err.values()),
           f"train step metrics differ between the card and the CPU: {metric_err}")
-    return radix
+    return radix, cpu
+
+
+def store_on(model, device):
+    """A copy of `model`'s store (params, Adam, aux) on `device`."""
+    from wildgaussians_torch.models import gaussian_store as gs
+    def copy(x):
+        return x.detach().to(device, copy=True)
+    params = {k: copy(v) for k, v in model.params.items()}
+    adam = gs.AdamState({k: copy(v) for k, v in model.adam.mu.items()},
+                        {k: copy(v) for k, v in model.adam.nu.items()}, copy(model.adam.step))
+    return params, adam, gs.AuxState(*[copy(x) for x in model.aux])
+
+
+def near_thresholds(store, out, config, extent, size_pruning):
+    """The slots whose deciding value in densify_and_prune lies within
+    TOL_DECIDE (relative) of its threshold, on the CPU's values: the mean
+    gradient (and the mean abs gradient against its quantile), a selected
+    slot's max scale, and after densify every slot's activated opacity (and
+    max scale, with size pruning)."""
+    from wildgaussians_torch.models import gaussian_store as gs
+    params, _adam, aux = store
+    new_params = out[0]
+
+    def near(values, threshold):
+        threshold = torch.as_tensor(threshold, dtype=torch.float32)
+        return (values - threshold).abs() <= TOL_DECIDE * threshold.abs()
+    alive = aux.alive
+    denom = torch.clamp_min(aux.denom, 1e-12)
+    grads = torch.nan_to_num(aux.xyz_grad / denom)[:, 0]
+    flagged = near(grads, config.densify_grad_threshold) & alive
+    sel = (grads >= config.densify_grad_threshold) & alive
+    if config.use_gof_abs_gradient:
+        gabs = torch.nan_to_num(aux.xyz_gradient_accum_abs / denom)[:, 0]
+        q = gs._masked_quantile(gabs, alive, 1.0 - torch.sum(sel) / torch.clamp_min(alive.sum(), 1))
+        flagged |= near(gabs, q) & alive
+        sel |= (gabs >= q) & alive
+    max_scale = torch.amax(torch.exp(params["scales"]), dim=1)
+    flagged |= near(max_scale, torch.tensor(config.percent_dense) * torch.tensor(extent)) & sel
+    flagged |= near(torch.sigmoid(new_params["opacities"])[:, 0], 0.005)
+    if size_pruning:
+        flagged |= near(torch.amax(torch.exp(new_params["scales"]), dim=1),
+                        torch.tensor(0.1) * torch.tensor(extent))
+    return int(flagged.sum())
+
+
+def store_close(got, want, label):
+    """Each tensor of `want` (CPU) equal to `got` (card) where it is not
+    finite (a sky Gaussian's opacity logit is +inf; NaN equals NaN), else within
+    TOL_STORE_RTOL |want| + TOL_STORE_ATOL max|want|. Returns the largest
+    error over the scale and the elements outside plain TOL_STORE_RTOL."""
+    worst, outside_rtol = 0.0, 0
+    for k, w in want.items():
+        g = got[k].cpu()
+        finite = torch.isfinite(w)
+        g_nf, w_nf = g[~finite], w[~finite]
+        check(bool(((g_nf == w_nf) | (g_nf.isnan() & w_nf.isnan())).all()),
+              f"{label}: {k} differs where not finite")
+        g, w = g[finite], w[finite]
+        if w.numel() == 0:
+            continue
+        scale = float(w.abs().max())
+        err = (g - w).abs()
+        over = err > TOL_STORE_RTOL * w.abs() + TOL_STORE_ATOL * scale
+        check(not bool(over.any()), f"{label}: {k} differs between the card and the CPU "
+                                    f"({int(over.sum())} elements, max {float(err.max())})")
+        worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        outside_rtol += int((err > TOL_STORE_RTOL * w.abs()).sum())
+    return worst, outside_rtol
+
+
+def check_store_ops(cpu_model):
+    """densify_and_prune (both abs modes, size pruning on), reset_opacity and
+    grow_capacity on the card against the CPU, each from one store (the CPU
+    model's after its training step, copied to each device) with the same
+    split normals: alive masks and stats equal unless a deciding value lies
+    within TOL_DECIDE of its threshold (at most TOL_NEAR such slots), live
+    parameters, Adam's moments and aux buffers close (store_close); growth
+    exactly. The extent is the one at which half the live Gaussians are
+    cloned rather than split (the check cameras' own spread is so small
+    that size pruning would remove every Gaussian)."""
+    import dataclasses
+    from wildgaussians_torch.models import gaussian_store as gs
+    c = cpu_model.aux.alive.shape[0]
+    max_scale = torch.amax(torch.exp(cpu_model.params["scales"].detach()), dim=1)
+    extent = float(max_scale[cpu_model.aux.alive].median()) / cpu_model.config.percent_dense
+    g = torch.Generator().manual_seed(SEED)
+    normals = (torch.randn((c, 3), generator=g), torch.randn((c, 3), generator=g))
+    for use_abs in (True, False):
+        config = dataclasses.replace(cpu_model.config, use_gof_abs_gradient=use_abs)
+        outs = {}
+        for dev in ("cpu", DEVICE):
+            store = store_on(cpu_model, dev)
+            with replaced(gs, "split_normals",
+                          lambda _c, _g, dev=dev: tuple(x.to(dev) for x in normals)):
+                outs[dev] = gs.densify_and_prune(*store, config, extent, True,
+                                                 torch.Generator(device=dev))
+        near = near_thresholds(store_on(cpu_model, "cpu"), outs["cpu"], config, extent, True)
+        (cp, ca, cx, cs), (gp, ga, gx, gst) = outs["cpu"], outs[DEVICE]
+        stats = {k: (int(v), int(gst[k])) for k, v in cs.items()}
+        alive_equal = torch.equal(gx.alive.cpu(), cx.alive)
+        label = f"densify_and_prune, abs {use_abs}, card vs CPU"
+        check(near <= TOL_NEAR, f"{label}: {near} deciding values within {TOL_DECIDE}")
+        check(near > 0 or (alive_equal and all(a == b for a, b in stats.values())),
+              f"{label}: alive masks or stats differ: {stats}")
+        live = cx.alive
+        worst, outside = (0.0, 0)
+        if alive_equal:
+            def rows(params):
+                return {k: v.detach().cpu()[live] if v.shape[0] == c else v.detach().cpu()
+                        for k, v in params.items()}
+            worst, outside = store_close(rows(gp), rows(cp), label)
+            for name in ("mu", "nu"):
+                store_close(getattr(ga, name), getattr(ca, name), f"{label}, Adam {name}")
+            store_close({f: getattr(gx, f) for f in gs.AuxState._fields if f != "alive"},
+                        {f: getattr(cx, f) for f in gs.AuxState._fields if f != "alive"}, label)
+        check(stats["clones"][0] > 0 and stats["splits"][0] > 0 and stats["n_alive"][0] > 0,
+              f"{label}: nothing to compare: {stats}")
+        emit({"check": "densify_and_prune, card vs CPU", "use_gof_abs_gradient": use_abs,
+              "size_pruning": True, "extent": extent, "capacity": c, "stats": stats,
+              "alive_equal": alive_equal,
+              "near_threshold_slots": near, "max_err_over_scale": worst,
+              "elements_outside_rtol": outside})
+    # the opacity reset and a growth, each from the last densified CPU store
+    def copy_store(dev):
+        def to(x):
+            return x.detach().to(dev, copy=True)
+        return ({k: to(v) for k, v in cp.items()},
+                gs.AdamState({k: to(v) for k, v in ca.mu.items()},
+                             {k: to(v) for k, v in ca.nu.items()}, to(ca.step)),
+                gs.AuxState(*[to(x) for x in cx]))
+    resets = {}
+    for dev in ("cpu", DEVICE):
+        p, a, x = copy_store(dev)
+        resets[dev] = (gs.reset_opacity(p, a, x)[0], x)
+    live = cx.alive
+    worst, outside = store_close({"opacities": resets[DEVICE][0]["opacities"][live.to(DEVICE)]},
+                                 {"opacities": resets["cpu"][0]["opacities"][live]},
+                                 "reset_opacity, card vs CPU")
+    capped = gs.reset_capped_opacity(*resets[DEVICE])[live.to(DEVICE)]
+    emit({"check": "reset_opacity, card vs CPU", "max_err_over_scale": worst,
+          "elements_outside_rtol": outside, "max_capped_opacity": float(capped.max())})
+    check(float(capped.max()) <= 0.01 * (1 + 1e-5), "reset_opacity left an opacity over 0.01")
+
+    def flat(store):
+        p, a, x = store
+        out = {f"params/{k}": v.detach() for k, v in p.items()}
+        out.update({f"mu/{k}": v for k, v in a.mu.items()})
+        out.update({f"nu/{k}": v for k, v in a.nu.items()})
+        out.update({f"aux/{f}": getattr(x, f) for f in gs.AuxState._fields})
+        return out
+    grown = {dev: flat(gs.grow_capacity(*copy_store(dev), c + 4096)) for dev in ("cpu", DEVICE)}
+    check(grown["cpu"].keys() == grown[DEVICE].keys(), "grow_capacity: the store's keys")
+    for k, v in grown["cpu"].items():
+        g = grown[DEVICE][k].cpu()
+        check(v.shape == g.shape and bool(((v == g) | (v.isnan() & g.isnan())).all()),
+              f"grow_capacity, card vs CPU: {k}")
+    emit({"check": "grow_capacity, card vs CPU", "capacity": [c, c + 4096], "equal": True})
 
 
 def phase_check(tmp, errs):
@@ -588,13 +792,15 @@ def phase_check(tmp, errs):
     opts = {"outputs": ["depth"], "embedding": gpu.get_train_embedding(2)}
     compare_render_path(gpu, WildGaussians(checkpoint=ckpt, device="cpu"), cam, opts, "sort")
     train_cams = [camera(p, CHECK_W, CHECK_H, CHECK_W / 1.4) for p in poses()[:2]]
-    check_train_step(gpu, train_cams)
+    _radix, cpu_model = check_train_step(gpu, train_cams)
+    check_store_ops(cpu_model)
+    del cpu_model
     # the partition engine: the render path and one training step, card vs
     # CPU, and K5/K6 on the arguments the card's step passed them
     set_binning(ckpt, "partition")
     compare_render_path(WildGaussians(checkpoint=ckpt), WildGaussians(checkpoint=ckpt, device="cpu"),
                         cam, opts, "partition")
-    radix = check_train_step(gpu, train_cams, binning="partition")
+    radix, _cpu_model = check_train_step(gpu, train_cams, binning="partition")
     check(set(radix) == {"radix_pass", "radix_unpass"}, f"the partition step ran {set(radix)}")
     for name, err in check_radix(radix, f"a partition training step at {CHECK_W}x{CHECK_H}, "
                                         f"{CHECK_N} points + {CHECK_SKY} sky").items():
@@ -924,6 +1130,105 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
     return launches, timings
 
 
+def live_count(ds, config):
+    """The training set's points plus the sky points a camera sees: the
+    store's live count after set-up."""
+    from wildgaussians_torch.models.sky import get_sky_points
+    sky, _d = get_sky_points(config.num_sky_gaussians, ds["points3D_xyz"], ds["cameras"])
+    return len(ds["points3D_xyz"]) + len(sky)
+
+
+def phase_densify(serve_model, cams, path, errs):
+    """Densify/prune, opacity reset and capacity growth at full width
+    ("densify": the sort engine, "partition_densify": the partition engine):
+    phase 6's set-up with DENSIFY_OVERRIDES and the capacity of its live
+    count rounded up to 256, trained DENSIFY_STEPS steps (iteration 2
+    densifies and grows, 3 resets, 4 densifies with size pruning, 5 trains on
+    the grown store). Per step: ms, loss, the densify, reset_opacity and
+    grow_capacity spans, the densify stats and the capacity before and
+    after. Fatal: a loss that is not finite, a densify whose n_alive is not
+    the store's live count, no growth at iteration 2, a reset that leaves a
+    live `reset_capped_opacity` over 0.01, a step that does not launch each
+    kernel of the path as often as the engine's sizes say; K1-K3 (and K5,
+    K6) are held against their plain versions on the arguments of the last
+    step, on the grown store. Returns each kernel's launches over the steps."""
+    from wildgaussians_torch import WildGaussians
+    from wildgaussians_torch.config import load_config_yaml
+    from wildgaussians_torch.models import gaussian_store as gs
+    from wildgaussians_torch.models import wildgaussians as trainer
+    from wildgaussians_torch.spans import SpanTimer
+    binning = "partition" if path == "partition_densify" else "sort"
+    ks = [k for k in kernels() if path in k["paths"]]
+    ds, _xyz = full_training_set(serve_model, cams)
+    n_live = live_count(ds, load_config_yaml(os.path.join(trainer._CONFIG_DIR, "default.yml")))
+    capacity0 = (n_live + 255) // 256 * 256
+    model = WildGaussians(train_dataset=ds, config_overrides=dict(
+        uncertainty_mode="disabled", pallas_binning=binning, initial_capacity=capacity0,
+        **DENSIFY_OVERRIDES))
+    check(int(model.aux.alive.sum()) == n_live, f"{path}: live count after set-up")
+    stats = []
+    reset_counts(ks)
+    torch.cuda.reset_peak_memory_stats()
+    steps, launches, captured, radix = [], {k["name"]: 0 for k in ks}, {}, {}
+    for step in range(DENSIFY_STEPS):
+        iteration = step + 1
+        capacity = int(model.aux.alive.shape[0])
+        per_step = launches_per_unit(model, path)
+        before = launch_counts(ks)
+        last = step == DENSIFY_STEPS - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SpanTimer() as timer, results_of(gs, "densify_and_prune", stats.append), \
+                kernel_calls(captured, radix) if last else contextlib.nullcontext():
+            metrics = model.train_iteration(step)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        spans = timer.ms()
+        ran = {name: c - before[name] for name, c in launch_counts(ks).items()}
+        check(ran == per_step, f"{path} step {step} launched {ran}, not {per_step}")
+        for name, c in ran.items():
+            launches[name] += c
+        row = {"step": step, "iteration": iteration, "ms": ms, "loss": metrics["loss"],
+               "psnr": metrics["psnr"], "num_gaussians": metrics["num_gaussians"],
+               "capacity_before": capacity, "capacity_after": int(model.aux.alive.shape[0]),
+               "span_ms": {name: spans[name][0] for name in ("densify", "reset_opacity",
+                                                             "grow_capacity") if name in spans},
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        check(np.isfinite(metrics["loss"]), f"{path}: loss at iteration {iteration}")
+        densifies = iteration > 1 and iteration % DENSIFY_OVERRIDES["densification_interval"] == 0
+        resets = iteration % DENSIFY_OVERRIDES["opacity_reset_interval"] == 0
+        check(("densify" in spans) == densifies and ("reset_opacity" in spans) == resets,
+              f"{path}: the schedule at iteration {iteration} ran {sorted(spans)}")
+        if densifies:
+            st = {k: int(v) for k, v in stats.pop()[3].items()}
+            row["densify_stats"] = st
+            check(st["n_alive"] == int(model.aux.alive.sum()),
+                  f"{path}: n_alive {st['n_alive']} is not the store's live count")
+        if iteration == 2:
+            check(row["capacity_after"] > capacity, f"{path}: iteration 2 did not grow the store")
+        if resets:
+            live = model.aux.alive
+            capped = float(gs.reset_capped_opacity(model.params, model.aux)[live].max())
+            row["after_reset"] = {
+                "max_capped_opacity": capped,
+                "max_activated_opacity": float(torch.sigmoid(model.params["opacities"].detach())[live]
+                                               .max())}
+            check(capped <= 0.01 * (1 + 1e-5), f"{path}: an opacity over 0.01 after the reset")
+        steps.append(row)
+    label = (f"{path} iteration {DENSIFY_STEPS} at {FULL_W}x{FULL_H}, grown store of "
+             f"{int(model.aux.alive.shape[0])} slots, {int(model.aux.alive.sum())} live")
+    # each row's peak is over the steps so far; the last step's includes the
+    # recorder's references to its kernels' arguments
+    emit({"phase": path, "binning": binning, "points": n_live, "capacity": capacity0,
+          "overrides": DENSIFY_OVERRIDES, "steps": steps,
+          "peak_mem_gib_before_recorded_step": steps[-2]["peak_mem_gib"]})
+    stages_of = partition_stages(engine_sizes(model)) if binning == "partition" else None
+    hold_step(captured, radix, stages_of, label, errs)
+    del model, captured, radix
+    torch.cuda.empty_cache()
+    return launches
+
+
 def hold_knn(points, label):
     """The k-NN init statistic (`ops/knn.py`, the JAX trainer's default
     native k-NN's function) on the card against the same call on the CPU, on
@@ -966,11 +1271,25 @@ def k2_bound_ms(inputs, walked, pairs):
 
 
 def k3_bound_ms(sums, big_list, bigs):
-    """K3 moves bytes: the pool's indices and values read once, and each
-    valid (row, slot)'s element of `sums` read and written once."""
-    valid = int((big_list < sums.shape[1]).sum())
-    bytes_moved = big_list.shape[0] * 4 + bigs.numel() * 4 + 2 * sums.shape[0] * valid * 4
-    return bytes_moved / PEAK_BYTES * 1e3, "bytes"
+    """K3 moves bytes: the pool's indices read once, and each valid (row,
+    slot)'s value read once and element of `sums` read and written once (a
+    padding slot's value is never read). Returns
+    (ms, "bytes", sector_ms): sector_ms moves `sums` in the card's 32-byte
+    sectors instead, each distinct sector that a valid slot touches read
+    once and written once (neighbouring big slots lie a few elements apart,
+    so most adds move a sector of their own each way)."""
+    rows, n = sums.shape
+    idx = big_list[big_list < n].long()     # sorted: a row's sectors ascend
+    valid = int(idx.shape[0])
+    head = big_list.shape[0] * 4 + rows * valid * 4
+    bytes_moved = head + 2 * rows * valid * 4
+    sectors = 0
+    if valid:
+        addr = (sums.data_ptr() + 4 * (torch.arange(rows, device=idx.device)[:, None]
+                                       * sums.stride(0) + idx[None, :])) // 32
+        sectors = rows + int((addr[:, 1:] != addr[:, :-1]).sum())
+    return (bytes_moved / PEAK_BYTES * 1e3, "bytes",
+            (head + 2 * sectors * 32) / PEAK_BYTES * 1e3)
 
 
 def hold_step(captured, radix, stages, label, errs):
@@ -1002,9 +1321,9 @@ def hold_step(captured, radix, stages, label, errs):
     valid = big_list < sums.shape[1]
     idx, vals = big_list[valid].long(), bigs[:, valid].contiguous()
     library_ms = time_cuda_ms(lambda: scratch.index_add_(1, idx, vals), iters=20)
-    bound, by = k3_bound_ms(sums, big_list, bigs)
+    bound, by, bound_sectors = k3_bound_ms(sums, big_list, bigs)
     out["tier2_merge"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                              library_ms=library_ms)
+                              library_ms=library_ms, bound_ms_sectors=bound_sectors)
     emit({"phase": "timing", "kernel": "tier2_merge", "at": label, "rows": int(sums.shape[0]),
           "n": int(sums.shape[1]), "m_cap": int(big_list.shape[0]), "valid": int(valid.sum()),
           **out["tier2_merge"]})
@@ -1473,6 +1792,10 @@ def main():
         launches["partition_train"], part = phase_train(serve_model, cams, "partition_train",
                                                         PARTITION_STEPS, 1, errs)
         timings.update({name: part[name] for name in ("radix_pass", "radix_unpass")})
+        torch.cuda.empty_cache()
+        # densify/prune, the opacity reset and capacity growth under each engine
+        for path in ("densify", "partition_densify"):
+            launches[path] = phase_densify(serve_model, cams, path, errs)
         del serve_model
         torch.cuda.empty_cache()
 

@@ -4,13 +4,15 @@ against it and against their plain versions), K2 (its backward, per gradient row
 largest value: the kernel sums each entry over 256 pixels in another order;
 with and without its two abs rows, whose summed rows stay bit for bit
 those without them; on a surfel table and on a hand-made one with a long
-tile, a mid-chunk exit and the alpha cap), K3 (the tier-2 merge, exactly),
+tile, a mid-chunk exit and the alpha cap), K3 (the tier-2 merge, exactly;
+also on hand-made pools with padding, odd lengths, strided rows and no slot),
 K4 (the planar static blend: as K1 against its plain version, and equal to
 K1 bit for bit with bg = 0), K5 and K6 (a radix pass and its inverse: they
 only move values, so exactly, pass by pass, also at B = 2, 4, 16, 32 on
 key patterns that set K5's runs), P1 (the early-exit probe: its walked counts
 equal to K1's, its chunk counts exactly) and P2 (the run scatter, exactly,
-on the probe's five configurations, scaled down). This file
+on the probe's five configurations, scaled down, and on runs of 1 and 3
+columns, runs longer than a block's span and unaligned starts). This file
 imports neither JAX nor the test helpers, so that it also runs on a machine
 with a card and no JAX:
 
@@ -71,6 +73,32 @@ def _check_backward(st, grid, n_passes, dev):
     assert tblend.tier2_merge.launches == before + 1
     assert int((st.big_list < n).sum()) > 0
     assert torch.equal(got, tblend.tier2_merge_plain(sums.clone(), st.big_list, bigs))
+
+
+def _check_k3_edges(dev):
+    """K3 exactly on hand-made pools: padding indices >= n among the last
+    slots, a pool whose length is no multiple of a block's slots, rows that
+    lie apart in a wider table (a strided view, as the slot sums are), one
+    row, 9 to 15 rows, and an empty pool (sums unchanged)."""
+    rng = np.random.default_rng(7)
+    for rows, n, m, width in ((13, 5000, 1003, 5000), (15, 7919, 1300, 9000), (1, 300, 37, 300),
+                              (9, 4096, 4096, 4100), (4, 100, 0, 100)):
+        valid = np.sort(rng.choice(n, size=min(m, n) * 3 // 4, replace=False))
+        big_list = np.full(m, n, np.int32)
+        big_list[:len(valid)] = valid
+        big_list[len(valid):] += np.arange(m - len(valid), dtype=np.int32)   # n, n+1, ...
+        table = torch.tensor(rng.normal(size=(rows, width)).astype(np.float32), device=dev)
+        sums = table[:, :n]
+        bigs = torch.tensor(rng.normal(size=(rows, m)).astype(np.float32), device=dev)
+        bl = torch.tensor(big_list, device=dev)
+        want = tblend.tier2_merge_plain(sums.clone(), bl, bigs)
+        before = tblend.tier2_merge.launches
+        got = tblend.tier2_merge(sums, bl, bigs)
+        torch.cuda.synchronize()
+        # an empty pool merges nothing and launches nothing
+        assert got.data_ptr() == table.data_ptr()
+        assert tblend.tier2_merge.launches == before + (m > 0)
+        assert torch.equal(got, want), (rows, n, m, width)
 
 
 def _check_k2(table, tile_starts, tile_counts, grid, n_passes, dev):
@@ -306,6 +334,7 @@ def test_blend_kernel_matches_plain_on_card():
     _check_k2_edges(dev)
     _check_fwd_edges(dev)
     _check_radix(dev)
+    _check_k3_edges(dev)
     _check_run_scatter(dev)
 
 
@@ -354,4 +383,15 @@ def _check_run_scatter(dev):
         got = tsort.run_scatter(src, starts, E, run)
         torch.cuda.synchronize()
         assert tsort.run_scatter.launches == before + 1
+        assert torch.equal(got, tsort.run_scatter_plain(src, starts, E, run)), (C, E, run)
+    # runs shorter than 4 columns, runs longer than a block's 4,096 columns
+    # per pass, starts at every residue mod 4, an odd run length (no row of
+    # dst 16-byte aligned after the first)
+    rng = np.random.default_rng(3)
+    for C, K, E, run in ((64, 8, 2, 3), (5, 40_000, 2, 10_001), (16, 600, 3, 150),
+                         (4, 64, 8, 1)):
+        src, _ = tsort.scatter_inputs(C, K, E, run, dev)
+        starts = torch.tensor(rng.integers(0, C * K + K - run, C * E).astype(np.int32), device=dev)
+        got = tsort.run_scatter(src, starts, E, run)
+        torch.cuda.synchronize()
         assert torch.equal(got, tsort.run_scatter_plain(src, starts, E, run)), (C, E, run)

@@ -26,7 +26,16 @@ then held on identical gradients to f32 rounding (rtol 1e-6), and a state
 saved by the port loads into the JAX package (`_load_state`) array for
 array, and back into the port.
 
+Then the densify schedule (`_check_schedule`): the JAX store after the step
+(an Adam step on its gradients) carried into the port, the JAX trainer's
+host schedule at iterations 2 (densify, capacity growth, filter refresh)
+and 3 (opacity reset) against the port's, with the JAX normals for the
+splits: the capacities, the densify stats, alive masks, Adam's moments and
+the aux buffers exactly, live parameters within rtol 1e-6, atol 1e-7, the
+3D filter within rtol 1e-6; and one port step on the grown store.
+
 One test (see test_torch_isolation.py)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +48,7 @@ from helpers import make_scene
 from wildgaussians_tpu.ops.knn import mean_knn_dist2 as jknn
 from wildgaussians_tpu.types import new_cameras as jcameras
 from wildgaussians_torch import WildGaussians
+from wildgaussians_torch.io.convert import state_to_numpy, train_state_from_numpy
 import wildgaussians_torch.models.gaussian_store as gs
 import wildgaussians_torch.models.wildgaussians as twg
 import wildgaussians_torch.ops.blend as tblend
@@ -47,12 +57,21 @@ from wildgaussians_torch.types import new_cameras
 # a tile budget of 4 (the JAX step's compile and interpret time grow with
 # it; 4 takes ~5 s less than 8 on one CPU thread): rects of more tiles are
 # truncated, the same way on both sides (`overflow` > 0)
+# the densify schedule at its earliest: iteration 2 densifies (and outgrows
+# the 640 slots of 591 points), 3 resets the opacities; the compared step
+# (iteration 1) does neither
 OVERRIDES = dict(uncertainty_mode="disabled", rasterizer_backend="pallas",
-                 pallas_pack16=False, num_sky_gaussians=400, max_tiles_per_gaussian=4)
+                 pallas_pack16=False, num_sky_gaussians=400, max_tiles_per_gaussian=4,
+                 densify_from_iter=1, densification_interval=2, opacity_reset_interval=3,
+                 initial_capacity=640)
 CAMERA, STEP = 1, 0
 METRIC_RTOL = 1e-4
 GRAD_ATOL, GRAD_RTOL = 5e-3, 5e-2
 ADAM_RTOL = 1e-6
+# the stores after densify, growth and reset: live parameters (a split
+# child's offset may differ by an ulp: XLA's exp and norm round unlike
+# PyTorch's) and the 3D filter (a 4x4 inverse through two LAPACK builds)
+STORE_RTOL, STORE_ATOL, FILTER_RTOL = 1e-6, 1e-7, 1e-6
 
 
 @pytest.fixture(autouse=True)
@@ -160,6 +179,104 @@ def _check_adam(jparams, grads, model):
 _ADAM = (jgs.adam_update, gs.adam_update)
 
 
+def _store_of(model, jax_side):
+    """(params by store key in the port's layout, mu, nu, aux) as numpy."""
+    if jax_side:
+        flat = model._state_dict()
+    else:
+        flat = state_to_numpy(model.params, model.mlp, model.aux, model.adam,
+                              model.spatial_lr_scale)
+    def part(prefix):
+        return {k[len(prefix):]: _port_layout(k[len(prefix):], v) for k, v in flat.items()
+                if k.startswith(prefix)}
+    return part("params/"), part("adam/mu/"), part("adam/nu/"), part("aux/")
+
+
+def _compare_stores(jm, tm, label):
+    jp, jmu, jnu, jaux = _store_of(jm, True)
+    tp, tmu, tnu, taux = _store_of(tm, False)
+    alive = jaux["alive"]
+    assert np.array_equal(taux["alive"], alive), label
+    for k, v in jp.items():
+        assert tp[k].shape == v.shape, f"{label}: {k}"
+        if v.shape[0] == alive.shape[0]:
+            got, want = tp[k][alive], v[alive]
+        else:
+            got, want = tp[k], v
+        np.testing.assert_allclose(got, want, rtol=STORE_RTOL, atol=STORE_ATOL,
+                                   err_msg=f"{label}: {k}")
+    for got, want in ((tmu, jmu), (tnu, jnu)):
+        for k, v in want.items():
+            assert np.array_equal(got[k], v), f"{label}: Adam {k}"
+    for k, v in jaux.items():
+        if k == "filter_3D":
+            np.testing.assert_allclose(taux[k][alive], v[alive], rtol=FILTER_RTOL, atol=0,
+                                       err_msg=f"{label}: {k}")
+        else:
+            assert np.array_equal(taux[k], v), f"{label}: {k}"
+
+
+def _check_schedule(monkeypatch, jm, jparams0, tm):
+    """From the JAX store after the compared step (an Adam step on its
+    gradients), carried into the port by `train_state_from_numpy`: the JAX
+    trainer's host schedule at iterations 2 and 3 (`_densify_fn` with its
+    next key, `_maybe_grow_capacity`, `_refresh_filter`,
+    `_reset_opacity_fn`) against the port's `_densify_schedule`, which draws
+    the JAX normals; then one port step on the grown store. (Size pruning,
+    from the first densify after a reset on, is held in
+    test_torch_densify.py.)"""
+    config = tm.config
+    grads = jax.tree_util.tree_map(lambda g: jnp.nan_to_num(g), jm.params)
+    wd = {"appearance_embeddings": config.appearance_embedding_regularization}
+    jm.params, jm.adam = _ADAM[0](
+        jax.tree_util.tree_map(jnp.asarray, jparams0), grads, jm.adam,
+        jgs.param_learning_rates(jm.config, jm.spatial_lr_scale, jnp.float32(STEP + 1)),
+        weight_decay=wd)
+    state = train_state_from_numpy(jm._state_dict(), config)
+    (tm.params, tm.mlp, tm.aux), tm.adam = state.model, state.adam
+    for t in tm._trainable().values():
+        t.requires_grad_(True)
+    _compare_stores(jm, tm, "carried")
+    port_stats = []
+
+    def densify(*args, **kwargs):
+        out = _DENSIFY(*args, **kwargs)
+        port_stats.append({k: int(v) for k, v in out[3].items()})
+        return out
+    monkeypatch.setattr(gs, "densify_and_prune", densify)
+    capacities = [jm.aux.alive.shape[0]]
+    for iteration in (2, 3):
+        jstats = None
+        if iteration % config.densification_interval == 0:
+            jm._key, sub = jax.random.split(jm._key)
+            c = jm.aux.alive.shape[0]
+            normals = tuple(torch.tensor(np.asarray(jax.random.normal(k, (c, 3))))
+                            for k in (sub, jax.random.fold_in(sub, 1)))
+            monkeypatch.setattr(gs, "split_normals", lambda _c, _g, normals=normals: normals)
+            jm.params, jm.adam, jm.aux, dstats = jm._densify_fn(
+                sub, jm.params, jm.adam, jm.aux, jnp.float32(jm.cameras_extent),
+                jnp.bool_(iteration > config.opacity_reset_interval))
+            jstats = {k: int(v) for k, v in dstats.items()}
+            jm._maybe_grow_capacity(dstats)
+            jm._refresh_filter()
+        if iteration % config.opacity_reset_interval == 0:
+            jm.params, jm.adam = jm._reset_opacity_fn(jm.params, jm.adam, jm.aux)
+        tm._densify_schedule(iteration, True)
+        if jstats is not None:
+            assert port_stats.pop() == jstats, f"iteration {iteration}: {jstats}"
+        capacities.append(jm.aux.alive.shape[0])
+        assert tm.aux.alive.shape[0] == capacities[-1], f"iteration {iteration}"
+        _compare_stores(jm, tm, f"after iteration {iteration}")
+    assert capacities[1] > capacities[0], "iteration 2 grows the store"
+    # one step of the port on the grown store
+    monkeypatch.setattr(gs, "adam_update", _ADAM[1])
+    metrics = tm.train_iteration(4, camera_id=CAMERA)
+    assert np.isfinite(metrics["loss"]) and metrics["num_gaussians"] == int(tm.aux.alive.sum())
+
+
+_DENSIFY = gs.densify_and_prune
+
+
 def test_train_step_matches_jax(monkeypatch, tmp_path):
     # both sides get one array of Morton-window 3-NN distances (the JAX
     # package's fallback, which needs no g++), so that the step compares the
@@ -199,6 +316,8 @@ def test_train_step_matches_jax(monkeypatch, tmp_path):
     monkeypatch.setattr(jgs, "adam_update", lambda p, g, s, lrs, weight_decay=None: (g, s))
     monkeypatch.setattr(gs, "adam_update", t_capture)
     monkeypatch.setattr(tblend, "blend_backward", _f16_rows(tblend.blend_backward))
+    # the JAX step donates its store: keep the parameters it started from
+    jparams0 = jax.tree_util.tree_map(np.asarray, jm.params)
     jmetrics = jm.train_iteration(STEP, camera_id=CAMERA)
     tmetrics = tm.train_iteration(STEP, camera_id=CAMERA)
 
@@ -246,3 +365,5 @@ def test_train_step_matches_jax(monkeypatch, tmp_path):
     for k, v in resumed._trainable().items():
         assert np.array_equal(v.detach().numpy(), trainable[k].detach().numpy()), k
     assert int(resumed.adam.step) == 1 and resumed.step == STEP + 1
+
+    _check_schedule(monkeypatch, jm, jparams0, tm)

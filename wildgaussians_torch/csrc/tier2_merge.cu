@@ -5,19 +5,29 @@
 // `_tier2_dense_pallas` (:845) and `_tier2_merge` (:820). It computes, in
 // place,
 //   sums[r, big_list[j]] += bigs[r, j]   for every row r and pool slot j,
-// skipping slots whose index is >= n (the pool's padding). `big_list` is
-// sorted and unique (the sort engine builds it from one nonzero scan), so
-// no two threads touch one element: no atomics, and the result equals the
-// plain version exactly. The TPU kernel placed the values with a one-hot
-// matmul on its matrix unit because its scatter was slow; here one thread
-// per (row, slot) does the add.
+// skipping slots whose index is outside [0, n) (the pool's padding, >= n).
+// `big_list` is sorted and unique (the sort engine builds it from one
+// nonzero scan), so no two threads touch one element: no atomics, and the
+// result equals the plain version exactly. The TPU kernel placed the values
+// with a one-hot matmul on its matrix unit because its scatter was slow.
 //
-// Bound on this card: bytes. Each valid (row, slot) reads its big value and
-// its index and reads and writes one element of `sums`: ~16 bytes per
-// element against one add, far below the card's operations-per-byte ridge.
-// Consecutive threads take consecutive slots of one row, so the reads of
-// `bigs` and `big_list` are coalesced; the writes scatter into `sums` at
-// ascending addresses.
+// Bound on this card: bytes. Per valid (row, slot) the kernel reads one big
+// value and reads and writes one element of `sums`, against one add. The
+// pool holds up to 16 % of the slots, so neighbouring big slots lie ~6
+// elements apart and most adds touch a 32-byte sector of `sums` of their
+// own: the card moves the whole sector each way. So the least traffic is
+// the distinct sectors of `sums` that valid slots touch, read and written
+// once, plus the values and indices (chip_smoke.py prints this bound beside
+// the one that counts 4 bytes each way).
+//
+// Design: a 2D grid, slot blocks (x) by rows (y), one slot a thread, so no
+// thread splits a flat index by a 64-bit division. Consecutive lanes take consecutive slots, so
+// the adds that share a sector of `sums` come from one warp instruction. A
+// sweep of layouts on the pools of real training steps (PERF.md, section 6)
+// kept this one: two slots a thread was 3-5 us faster on full pools but 2
+// us slower on the sort engine's pools after an opacity reset (20-29 %
+// valid); one slot a thread is no slower than the parent on any pool
+// measured. Stopping a block at a padding first slot gained nothing.
 //
 // The launch goes on the caller's stream; the kernel allocates nothing and
 // does not synchronize with the host. wg_tier2_merge returns cudaGetLastError().
@@ -31,14 +41,12 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 tier2_merge_kernel(float* __restrict__ sums, long long sums_stride, int n,
                    const float* __restrict__ bigs, long long bigs_stride,
-                   const int* __restrict__ big_list, int m, int rows) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<long long>(rows) * m) return;
-  const int r = static_cast<int>(i / m);
-  const int j = static_cast<int>(i - static_cast<long long>(r) * m);
-  const int g = big_list[j];
+                   const int* __restrict__ big_list, int m) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= m) return;
+  const int g = __ldg(big_list + j);
   if (g < 0 || g >= n) return;
-  sums[r * sums_stride + g] += bigs[r * bigs_stride + j];
+  sums[blockIdx.y * sums_stride + g] += __ldg(bigs + blockIdx.y * bigs_stride + j);
 }
 
 }  // namespace
@@ -46,11 +54,9 @@ tier2_merge_kernel(float* __restrict__ sums, long long sums_stride, int n,
 extern "C" int wg_tier2_merge(float* sums, long long sums_stride, int n,
                               const float* bigs, long long bigs_stride,
                               const int* big_list, int m, int rows, void* stream) {
-  const long long total = static_cast<long long>(rows) * m;
-  if (total <= 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  tier2_merge_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      sums, sums_stride, n, bigs, bigs_stride, big_list, m, rows);
+  if (m <= 0 || rows <= 0) return 0;
+  const dim3 grid((m + kThreads - 1) / kThreads, rows);
+  tier2_merge_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sums, sums_stride, n, bigs, bigs_stride, big_list, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,12 @@
 """The fixed-capacity Gaussian store: parameters, Adam, and the per-Gaussian
 buffers of the render path and of densification.
 
-Counterpart of `wildgaussians_tpu/models/gaussian_store.py` (without
-densify/prune, opacity reset and capacity growth). The store keeps the JAX
-package's fixed capacity with an `alive` mask, so that a checkpoint's slots
-map one to one and an init from the same seed and points gives the same
-arrays.
+Counterpart of `wildgaussians_tpu/models/gaussian_store.py`. The store
+keeps the JAX package's fixed capacity with an `alive` mask, so that a
+checkpoint's slots map one to one and an init from the same seed and points
+gives the same arrays: densify writes clones and split children into free
+slots, prune clears alive bits, and capacity growth pads every per-Gaussian
+tensor with dead slots (new tensors, which the trainer rebinds).
 
 Parameters are a flat dict of tensors. The per-Gaussian tensors and the
 image embeddings are keyed as in the JAX package; the appearance MLP's
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops.gaussians import apply_3d_filter
+from ..ops.gaussians import apply_3d_filter, quat_to_rotmat
+
+_MIN_OPACITY = 0.005   # densify_and_prune prunes live slots below this activated opacity
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -275,3 +278,226 @@ def update_densification_stats(aux: AuxState, mean2d_grad: torch.Tensor,
                 aux.xyz_gradient_accum_abs_max),
         )
     return aux
+
+
+def _masked_quantile(values: torch.Tensor, mask: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """torch.quantile (linear interpolation) over values[mask], in the JAX
+    package's f32 formula: inf when the mask is empty."""
+    c = values.shape[0]
+    v = torch.sort(torch.where(mask, values, torch.inf)).values
+    n = torch.sum(mask)
+    pos = torch.clamp(q, 0.0, 1.0) * torch.clamp_min(n - 1, 0).to(torch.float32)
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.ceil(pos).to(torch.int64)
+    vlo = v[torch.clamp(lo, 0, c - 1)]
+    vhi = v[torch.clamp(hi, 0, c - 1)]
+    out = vlo + (pos - lo.to(torch.float32)) * (vhi - vlo)
+    return torch.where(n > 0, out, torch.inf)
+
+
+def _free_slot_table(alive: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(table, n_free): table[r] is the slot of the r-th free slot for r <
+    n_free, and c past it."""
+    c = alive.shape[0]
+    free = ~alive
+    rank = torch.cumsum(free, 0) - 1
+    table = torch.full((c,), c, dtype=torch.int64, device=alive.device)
+    table[rank[free]] = torch.arange(c, device=alive.device)[free]
+    return table, torch.sum(free)
+
+
+def per_gaussian_keys(params: Dict[str, torch.Tensor]):
+    """The per-Gaussian parameter tensors' keys: every [C, ...] tensor of the
+    store but the per-image `appearance_embeddings` (the MLP is not in
+    `params`)."""
+    c = params["xyz"].shape[0]
+    return [k for k, v in params.items()
+            if k != "appearance_embeddings" and v.dim() == 2 and v.shape[0] == c]
+
+
+def split_normals(c: int, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two [c, 3] standard normals that place a split's two children,
+    drawn from `generator` on its device."""
+    def draw():
+        return torch.randn((c, 3), generator=generator, device=generator.device)
+    return draw(), draw()
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
+def densify_and_prune(params: Dict[str, torch.Tensor], adam: AdamState, aux: AuxState,
+                      config: Config, extent: float, enable_size_pruning: bool,
+                      generator: torch.Generator):
+    """Clone, split and prune on the fixed-capacity store, as the JAX
+    package's `densify_and_prune`: IN PLACE on the parameters and Adam's
+    moments; returns (params, adam, aux, stats).
+
+    Selected: alive slots whose mean 2D gradient reaches
+    `densify_grad_threshold` (with `use_gof_abs_gradient`, also those whose
+    mean abs gradient reaches the (1 - share selected) quantile of the alive
+    slots'). A selected slot with max scale <= percent_dense * extent is
+    cloned (its raw parameters copied), a larger one split: child A
+    overwrites the parent, child B takes a free slot, each placed at the
+    parent's rotation applied to (normal draw * scales) with scales / 1.6.
+    Targets are the free slots in clone-then-split rank order; a selection
+    past the last free slot is dropped. Adam's moments and the densification
+    buffers of every written slot are zeroed. Then prune on the new state:
+    activated opacity < _MIN_OPACITY, and max scale > 0.1 extent with
+    `enable_size_pruning`. Stats (0-d tensors): clones, splits, pruned,
+    dropped_for_capacity, n_alive."""
+    alive = aux.alive
+    c = alive.shape[0]
+    dev = alive.device
+    denom = torch.clamp_min(aux.denom, 1e-12)
+    grads = torch.nan_to_num(aux.xyz_grad / denom)[:, 0]
+    sel = grads >= config.densify_grad_threshold
+    if config.use_gof_abs_gradient:
+        ratio = torch.sum(sel & alive) / torch.clamp_min(torch.sum(alive), 1)
+        grads_abs = torch.nan_to_num(aux.xyz_gradient_accum_abs / denom)[:, 0]
+        q_thresh = _masked_quantile(grads_abs, alive, 1.0 - ratio)
+        sel = sel | (grads_abs >= q_thresh)
+    sel = sel & alive
+
+    scales_act = torch.exp(params["scales"])
+    max_scale = torch.amax(scales_act, dim=1)
+    # the thresholds in f32, as the JAX package forms them from an f32 extent
+    dense_scale = _f32(config.percent_dense, dev) * _f32(extent, dev)
+    clone_sel = sel & (max_scale <= dense_scale)
+    split_sel = sel & (max_scale > dense_scale)
+
+    table, n_free = _free_slot_table(alive)
+    n_clone = torch.sum(clone_sel)
+    clone_rank = torch.cumsum(clone_sel, 0) - 1
+    split_rank = n_clone + torch.cumsum(split_sel, 0) - 1
+    clone_ok = clone_sel & (clone_rank < n_free)
+    split_ok = split_sel & (split_rank < n_free)
+    clone_src = torch.nonzero(clone_ok)[:, 0]
+    split_src = torch.nonzero(split_ok)[:, 0]
+    clone_tgt = table[clone_rank[clone_src]]
+    split_tgt = table[split_rank[split_src]]
+
+    eps_a, eps_b = split_normals(c, generator)
+    stds = scales_act[split_src]
+    rots = quat_to_rotmat(l2_normalize(params["rotations"][split_src]))
+    off_a = torch.einsum("nij,nj->ni", rots, eps_a[split_src] * stds)
+    off_b = torch.einsum("nij,nj->ni", rots, eps_b[split_src] * stds)
+    split_scales = torch.log(stds / (0.8 * 2))
+
+    # targets are free slots and sources alive ones: every value below is
+    # read before any slot it comes from is written
+    keys = per_gaussian_keys(params)
+    for k in keys:
+        p = params[k]
+        if k == "xyz":
+            child_a, child_b = p[split_src] + off_a, p[split_src] + off_b
+        elif k == "scales":
+            child_a = child_b = split_scales
+        else:
+            child_a = child_b = p[split_src]
+        p[clone_tgt] = p[clone_src]
+        p[split_tgt] = child_b
+        p[split_src] = child_a
+
+    touched = torch.zeros((c,), dtype=torch.bool, device=dev)
+    touched[clone_tgt] = True
+    touched[split_tgt] = True
+    touched[split_src] = True
+    for k in keys:
+        adam.mu[k][touched] = 0.0
+        adam.nu[k][touched] = 0.0
+    grown = alive.clone()
+    grown[clone_tgt] = True
+    grown[split_tgt] = True
+
+    # prune on the post-densification state
+    opacity_act = torch.sigmoid(params["opacities"])[:, 0]
+    prune = opacity_act < _MIN_OPACITY
+    if enable_size_pruning:
+        new_max_scale = torch.amax(torch.exp(params["scales"]), dim=1)
+        prune = prune | (new_max_scale > _f32(0.1, dev) * _f32(extent, dev))
+    alive_after = grown & ~prune
+
+    # the touched slots' densification buffers start again from zero (a new
+    # slot's, and a moved parent's, are stale)
+    def zeroed(x):
+        return torch.where(touched.view(-1, *([1] * (x.dim() - 1))), 0.0, x)
+    aux = aux._replace(
+        alive=alive_after,
+        xyz_grad=zeroed(aux.xyz_grad),
+        xyz_gradient_accum_abs=zeroed(aux.xyz_gradient_accum_abs),
+        xyz_gradient_accum_abs_max=zeroed(aux.xyz_gradient_accum_abs_max),
+        denom=zeroed(aux.denom),
+        max_radii2D=zeroed(aux.max_radii2D),
+        filter_3D=zeroed(aux.filter_3D),
+    )
+    stats = {
+        "clones": torch.sum(clone_ok),
+        "splits": torch.sum(split_ok),
+        "pruned": torch.sum(grown & prune),
+        "dropped_for_capacity": torch.sum(clone_sel & ~clone_ok) + torch.sum(split_sel & ~split_ok),
+        "n_alive": torch.sum(alive_after),
+    }
+    return params, adam, aux, stats
+
+
+def _reset_coefficient(g: Dict[str, torch.Tensor], aux: AuxState) -> torch.Tensor:
+    """[C, 1]: the coefficient `reset_opacity` divides by, the 3D filter's
+    opacity factor taken once more over the already filtered scales (as the
+    JAX package takes it), floored at 1e-12."""
+    s2 = torch.square(g["scales"])
+    det1 = s2[:, 0] * s2[:, 1] * s2[:, 2]
+    s2f = s2 + torch.square(aux.filter_3D)
+    det2 = s2f[:, 0] * s2f[:, 1] * s2f[:, 2]
+    return torch.clamp_min(torch.sqrt(det1 / torch.clamp_min(det2, 1e-30))[:, None], 1e-12)
+
+
+@torch.no_grad()
+def reset_capped_opacity(params: Dict[str, torch.Tensor], aux: AuxState) -> torch.Tensor:
+    """[C]: what `reset_opacity` caps at 0.01, the activated opacity (before
+    the filter) times the reset's coefficient."""
+    g = get_gaussians(params, aux)
+    return (torch.sigmoid(params["opacities"]) * _reset_coefficient(g, aux))[:, 0]
+
+
+@torch.no_grad()
+def reset_opacity(params: Dict[str, torch.Tensor], adam: AdamState, aux: AuxState):
+    """Opacity reset through the 3D filter, as the JAX package's
+    `reset_opacity`: the activated (filtered) opacity capped at 0.01, divided
+    by `_reset_coefficient`, clipped to (1e-6, 1 - 1e-6) and written back as
+    a logit; the opacities' Adam moments zeroed. IN PLACE; returns (params,
+    adam). Since the coefficient is below 1, the activated opacity before
+    the filter may end above 0.01; `reset_capped_opacity` is at most 0.01."""
+    g = get_gaussians(params, aux)
+    op_new = torch.clamp_max(g["opacities"], 0.01) / _reset_coefficient(g, aux)
+    op_new = torch.clamp(op_new, 1e-6, 1 - 1e-6)
+    params["opacities"].copy_(torch.log(op_new / (1 - op_new)))
+    adam.mu["opacities"].zero_()
+    adam.nu["opacities"].zero_()
+    return params, adam
+
+
+@torch.no_grad()
+def grow_capacity(params: Dict[str, torch.Tensor], adam: AdamState, aux: AuxState,
+                  new_capacity: int):
+    """The store at `new_capacity` slots, as the JAX package's
+    `grow_capacity`: every per-Gaussian parameter, its Adam moments and
+    every per-Gaussian aux buffer padded with dead, zero slots (never
+    `appearance_embeddings` or the MLP's moments). Returns NEW tensors
+    (parameters keep their `requires_grad`); the caller rebinds whatever
+    held the old ones."""
+    c = aux.alive.shape[0]
+    if new_capacity <= c:
+        raise ValueError(f"grow_capacity: {new_capacity} <= the capacity {c}")
+    keys = per_gaussian_keys(params)
+
+    def padded(x):
+        return torch.cat([x.detach(), x.new_zeros((new_capacity - c, *x.shape[1:]))])
+    params = {k: padded(v).requires_grad_(v.requires_grad) if k in keys else v
+              for k, v in params.items()}
+    adam = AdamState(*[{k: padded(v) if k in keys else v for k, v in m.items()}
+                       for m in (adam.mu, adam.nu)], step=adam.step)
+    aux = AuxState(*[padded(x) if x.dim() >= 1 and x.shape[0] == c else x for x in aux])
+    return params, adam, aux

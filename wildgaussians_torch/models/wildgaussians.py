@@ -3,15 +3,15 @@
 Counterpart of `wildgaussians_tpu/models/wildgaussians.py`: construction
 (`_setup_train`, checkpoint loading), the single-device training step
 (`_build_train_step`'s loss and step, without the uncertainty model),
-`train_iteration`, `render`, `get_embedding`, `get_train_embedding` and
-`save`. Checkpoints use the JAX package's format (see io/convert.py), both
-ways.
+`train_iteration` with the host schedule after the step (densify/prune,
+capacity growth, opacity reset), `render`, `get_embedding`,
+`get_train_embedding` and `save`. Checkpoints use the JAX package's format
+(see io/convert.py), both ways.
 
-Not ported yet (ROADMAP.md, Queue 1): densify/prune, opacity reset and
-capacity growth (a schedule that reaches them raises NotImplementedError),
-the uncertainty model (training with an `uncertainty_mode` other than
-"disabled" raises at construction; rendering never uses it),
-`optimize_embedding` and the point-cloud export of `save`.
+Not ported yet (ROADMAP.md, Queue 1): the uncertainty model (training with
+an `uncertainty_mode` other than "disabled" raises at construction;
+rendering never uses it), `optimize_embedding` and the point-cloud export of
+`save`.
 """
 import hashlib
 import logging
@@ -119,6 +119,8 @@ class WildGaussians:
         # shuffle; the port keeps a generator of its own with that seed
         self._random = random.Random(0)
         self._np_rng = np.random.default_rng(self.config.seed)
+        # the split children's normal draws (densify_and_prune)
+        self._generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
         self._viewpoint_stack = []
         self.train_cameras: Optional[Cameras] = None
         self.cameras_extent: Optional[float] = None
@@ -316,23 +318,45 @@ class WildGaussians:
             metrics["num_gaussians"] = torch.sum(self.aux.alive)
         return metrics
 
-    def _check_schedule(self, iteration: int):
-        """Densify/prune and the opacity reset are not ported: raise where
-        the schedule reaches them instead of skipping them."""
+    def _densify_schedule(self, iteration: int, densify_enabled: bool):
+        """The JAX package's host schedule after a step: while densifying,
+        densify/prune every `densification_interval` iterations after
+        `densify_from_iter` (size pruning once past the first opacity
+        reset), grow the capacity when needed and refresh the 3D filter;
+        reset the opacities every `opacity_reset_interval`. Once densifying
+        has stopped, refresh the filter every 100 iterations."""
         config = self.config
-        if iteration >= config.densify_until_iter:
-            return
-        if (iteration > config.densify_from_iter
-                and iteration % config.densification_interval == 0):
-            raise NotImplementedError(
-                f"iteration {iteration} densifies (densify_from_iter={config.densify_from_iter}, "
-                f"densification_interval={config.densification_interval}): densify_and_prune "
-                "is not ported yet (ROADMAP.md, Queue 1, densify/prune/reset/grow_capacity)")
-        if iteration % config.opacity_reset_interval == 0:
-            raise NotImplementedError(
-                f"iteration {iteration} resets opacities (opacity_reset_interval="
-                f"{config.opacity_reset_interval}): reset_opacity is not ported yet "
-                "(ROADMAP.md, Queue 1, densify/prune/reset/grow_capacity)")
+        if densify_enabled:
+            if (iteration > config.densify_from_iter
+                    and iteration % config.densification_interval == 0):
+                with span("densify"):
+                    self.params, self.adam, self.aux, stats = gs.densify_and_prune(
+                        self.params, self.adam, self.aux, config, self.cameras_extent,
+                        iteration > config.opacity_reset_interval, self._generator)
+                self._maybe_grow_capacity(stats)
+                self._refresh_filter()
+            if iteration % config.opacity_reset_interval == 0:
+                with span("reset_opacity"):
+                    self.params, self.adam = gs.reset_opacity(self.params, self.adam, self.aux)
+        elif iteration % 100 == 0 and iteration < config.iterations - 100:
+            self._refresh_filter()
+
+    def _maybe_grow_capacity(self, stats: Dict[str, torch.Tensor]):
+        """Grow the store when a densify dropped selections for want of free
+        slots or left it above `capacity_high_watermark`: to
+        `capacity_growth_factor` times the capacity plus the dropped count,
+        rounded up to 256. The store's tensors are new after a growth."""
+        dropped = int(stats["dropped_for_capacity"])
+        n_alive = int(stats["n_alive"])
+        capacity = self.aux.alive.shape[0]
+        if dropped > 0 or n_alive > self.config.capacity_high_watermark * capacity:
+            new_capacity = _round_up(int(capacity * self.config.capacity_growth_factor) + dropped,
+                                     256)
+            logger.info("Growing capacity %d -> %d (alive=%d, dropped=%d)",
+                        capacity, new_capacity, n_alive, dropped)
+            with span("grow_capacity"):
+                self.params, self.adam, self.aux = gs.grow_capacity(
+                    self.params, self.adam, self.aux, new_capacity)
 
     def train_iteration(self, step: int, camera_id: Optional[int] = None) -> Dict[str, float]:
         """One training iteration (`step` is 0-indexed). Picks the camera
@@ -341,7 +365,6 @@ class WildGaussians:
         if self.train_cameras is None:
             raise RuntimeError("the method was not constructed with a train_dataset")
         iteration = step + 1
-        self._check_schedule(iteration)
         self.step = step
         if iteration % 1000 == 0:   # SH warm-up
             self.aux = self.aux._replace(active_sh_degree=torch.clamp_max(
@@ -353,8 +376,7 @@ class WildGaussians:
                 self._random.randint(0, len(self._viewpoint_stack) - 1))
         densify_enabled = iteration < self.config.densify_until_iter
         metrics = self._train_step(camera_id, iteration, densify_enabled)
-        if not densify_enabled and iteration % 100 == 0 and iteration < self.config.iterations - 100:
-            self._refresh_filter()
+        self._densify_schedule(iteration, densify_enabled)
         # one host transfer for every metric (each is exact in f32)
         keys = list(metrics.keys())
         vec = torch.stack([metrics[k].to(torch.float32) for k in keys]).cpu().numpy()

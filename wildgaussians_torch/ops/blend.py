@@ -462,8 +462,8 @@ def tier2_merge(sums: torch.Tensor, big_list: torch.Tensor, bigs: torch.Tensor) 
     """K3: merge the tier-2 slot sums bigs [rows, m_cap] into the per-Gaussian
     sums [rows, n] in place at the sorted, unique big_list [m_cap] (entries
     >= n are padding). A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel in `csrc/tier2_merge.cu` and adds one to
-    `tier2_merge.launches`. Returns sums."""
+    launches the kernel in `csrc/tier2_merge.cu` (unless the pool is empty)
+    and adds one to `tier2_merge.launches`. Returns sums."""
     if sums.device.type == "cpu":
         return tier2_merge_plain(sums, big_list, bigs)
     if sums.device.type != "cuda":
@@ -472,11 +472,13 @@ def tier2_merge(sums: torch.Tensor, big_list: torch.Tensor, bigs: torch.Tensor) 
     m = big_list.shape[0]
     if sums.dtype != torch.float32 or sums.stride(1) != 1:
         raise ValueError("sums must be f32 with contiguous rows")
-    if bigs.dtype != torch.float32 or tuple(bigs.shape) != (rows, m) or bigs.stride(1) != 1 \
-            or bigs.device != sums.device:
+    if bigs.dtype != torch.float32 or tuple(bigs.shape) != (rows, m) \
+            or (m > 0 and bigs.stride(1) != 1) or bigs.device != sums.device:
         raise ValueError(f"bigs must be f32 [{rows}, {m}] with contiguous rows on {sums.device}")
     if big_list.dtype != torch.int32 or not big_list.is_contiguous() or big_list.device != sums.device:
         raise ValueError(f"big_list must be a contiguous int32 tensor on {sums.device}")
+    if m == 0 or rows == 0:
+        return sums     # an empty pool: nothing to merge, no launch
     fn = _t2_kernel()
     with torch.cuda.device(sums.device):
         stream = torch.cuda.current_stream(sums.device).cuda_stream

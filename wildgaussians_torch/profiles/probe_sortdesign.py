@@ -87,6 +87,9 @@ def run_scatter(src: torch.Tensor, starts: torch.Tensor, E: int, run: int) -> to
         raise ValueError(f"starts must be a contiguous int32 [C {E}] on {src.device}")
     C = starts.shape[0] // E
     rows = src.shape[0]
+    if rows * C * E * ((run + 3) // 4) >= 2 ** 31:
+        raise ValueError(f"run_scatter: {rows} rows of {C * E} runs of {run} columns are "
+                         "2^31 or more 4-column groups")
     dst = torch.empty((rows, E, C * run), dtype=src.dtype, device=src.device)
     fn = _kernel()
     with torch.cuda.device(src.device):
