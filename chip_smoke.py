@@ -71,7 +71,31 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      grown store. Per step its ms, loss, the densify / reset_opacity /
      grow_capacity spans, stats and capacity; K1-K3 (and K5, K6) held
      against their plain versions on the last step's arguments;
-  9. "raster", the rasterizer API at bench.py's shapes (1.5M Gaussians,
+  9. "cli" and "cli_nerfw", the training CLI end to end, in process
+     (`wildgaussians_torch.train.main`, uncertainty disabled, 200
+     iterations, the JSONL logger and, where installed, tensorboard): a
+     COLMAP scene ("cli": configs/default.yml, the default protocol) and a
+     Photo Tourism capture ("cli_nerfw": configs/phototourism.yml, the
+     NeRF-W protocol, which fits an appearance embedding to each scored
+     image's left half, here in 32 iterations of the config's 128) written
+     to disk from the surfel scene's 1.5M points and 16 of the serving
+     model's renders as 8-bit PNGs (1280x720; the capture in 1280x720,
+     1024x768, 960x720 and 1022x683, whose halves are 511 wide and whose
+     height is no multiple of 16, as a Photo Tourism photo's may be; one
+     test image has that size). Seconds, from the CLI's spans, of the
+     dataset load (of which points3D.bin parsing), image decoding, set-up,
+     evaluation per image (render, embedding fit, PNG encode, metrics), and
+     of the steps, the embedding fits (ms per iteration, s per image) and
+     the whole phase; peak memory.
+     Fatal: a non-zero exit, train/psnr not rising between its two windows,
+     a non-finite result, a missing checkpoint file, a ply whose vertex
+     count is not the live count, the reloaded checkpoint's render of test
+     image 0 off the archived PNG by more than 1/255 on over 0.1 % of the
+     pixels, NeRF-W results that are not the right halves' metrics; K1-K3
+     held against their plain versions on the arguments of the first step,
+     of the first embedding iteration ("cli_nerfw") and of the first
+     evaluation render ("cli": K1);
+ 10. "raster", the rasterizer API at bench.py's shapes (1.5M Gaussians,
      1280x720, d_max 10, d_small 4): rasterize_gaussians(backend="pallas")
      on the random and the surfel scene, 8 forward-only calls, 4 forward +
      backward calls of an L1 loss (sort engine) and one forward + backward
@@ -79,13 +103,13 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      overflow; K1-K3 (and K5, K6) held on the first call of each kind; then
      one GaussianRasterizer call with SH degree 3 against
      rasterize_gaussians on the colors it precomputes;
- 10. "static", the sort-once / blend-many viewer path on the surfel scene:
+ 11. "static", the sort-once / blend-many viewer path on the surfel scene:
      bin_static once per pose, 20 render_static frames per pose with the
      background chained from the previous frame (bench.py's static mode):
      bin ms, ms per frame and frames per second; K4 held against its plain
      version, against K1 (bit for bit with bg 0) and the frame against
      rasterize_gaussians (within 1e-6), and timed;
- 11. "probes": P1 on the random and the surfel scene (what
+ 12. "probes": P1 on the random and the surfel scene (what
      `python -m wildgaussians_torch.profiles.probe_cfin` prints), the
      torch.sort sections of probe_sortdesign and P2's five run-scatter
      configurations; P1 held against K1's walked counts and its plain
@@ -185,6 +209,22 @@ RASTER_FWD, RASTER_BWD, STATIC_FRAMES = 8, 4, 20
 # JAX test's bound, tests/test_rasterize_pallas.py), and the
 # GaussianRasterizer against rasterize_gaussians on the colors it computes
 TOL_STATIC = 1e-6
+# the training CLI's phases: CLI_IMAGES renders of the serving model as the
+# photos (the every-8th split: 14 train, 2 test), CLI_ITERS iterations (two
+# train/psnr windows of 100); the Photo Tourism capture's image sizes, in
+# turn, and its NeRF-W test images (one of 1022x683, one of 960x720). The
+# NeRF-W protocol's embedding fits run CLI_NERFW_FIT_ITERS iterations, not
+# the config's 128: once the tile budget has grown (step 10: the sky's
+# first-step footprints overflow it), an iteration takes ~0.2 s on an H100
+# (80GB HBM3, 700 W), so the run's 8 fits of 128 would add ~150 s to a
+# script that must end well inside its time limit
+CLI_IMAGES, CLI_ITERS, CLI_NERFW_FIT_ITERS = 16, 200, 32
+CLI_EVAL_FEW = {"cli": "100,200", "cli_nerfw": "200"}
+CLI_NERFW_SIZES = ((1280, 720), (1024, 768), (960, 720), (1022, 683))
+CLI_NERFW_TEST = (3, 10)
+# the reloaded checkpoint's render of a test image against the PNG the CLI
+# archived: within 1/255 on all but this share of the pixels
+TOL_RELOAD_FRAC = 1e-3
 
 
 def check(cond, msg):
@@ -220,18 +260,20 @@ def kernels():
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:376",
                  wrapper=blend.blend_forward, plain=blend.blend_forward_plain,
                  paths=("serve", "train", "partition_serve", "partition_train", "densify",
-                        "partition_densify", "raster")),
+                        "partition_densify", "cli", "cli_nerfw", "raster")),
             dict(name="blend_bwd", route="cuda", source="wildgaussians_torch/csrc/blend_bwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:493",
                  also_replaces=["wildgaussians_tpu/ops/rasterize_pallas.py:482",
                                 "wildgaussians_tpu/ops/rasterize_pallas.py:501"],
                  wrapper=blend.blend_backward, plain=blend.blend_backward_plain,
-                 paths=("train", "partition_train", "densify", "partition_densify", "raster")),
+                 paths=("train", "partition_train", "densify", "partition_densify", "cli",
+                        "cli_nerfw", "raster")),
             dict(name="tier2_merge", route="cuda",
                  source="wildgaussians_torch/csrc/tier2_merge.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:872",
                  wrapper=blend.tier2_merge, plain=blend.tier2_merge_plain,
-                 paths=("train", "partition_train", "densify", "partition_densify", "raster")),
+                 paths=("train", "partition_train", "densify", "partition_densify", "cli",
+                        "cli_nerfw", "raster")),
             dict(name="blend_fwd_planar", route="cuda",
                  source="wildgaussians_torch/csrc/blend_fwd_planar.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:1472",
@@ -296,11 +338,12 @@ def results_of(module, attr, record):
     return replaced(module, attr, call)
 
 
-def blend_calls(captured):
+def blend_calls(captured, first=False):
     """A context in which each blend kernel's wrapper keeps its arguments in
-    `captured[kernel name]`, detached from the autograd graph (the backward
-    gets the forward's output final_T, which is part of it), and K3's
-    `sums`, which it updates in place, as a copy."""
+    `captured[kernel name]` (those of its last call, or with `first` of its
+    first), detached from the autograd graph (the backward gets the
+    forward's output final_T, which is part of it), and K3's `sums`, which
+    it updates in place, as a copy."""
     from wildgaussians_torch.ops import blend
     stack = contextlib.ExitStack()
     for name, attr in (("blend_fwd", "blend_forward"), ("blend_bwd", "blend_backward"),
@@ -309,6 +352,8 @@ def blend_calls(captured):
             # the tile order changes no result: the holds and timings call
             # the wrappers without it, and the wrappers compute it
             del order
+            if first and name in captured:
+                return
             args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
             captured[name] = (args[0].clone(),) + args[1:] if name == "tier2_merge" else args
         stack.enter_context(calls_of(blend, attr, record))
@@ -1229,6 +1274,301 @@ def phase_densify(serve_model, cams, path, errs):
     return launches
 
 
+def cli_poses(n):
+    """n camera-to-world poses on a loop around the surfel scene's identity
+    camera (the serving poses' range of yaw and offsets)."""
+    out = []
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        yaw = 0.07 * np.sin(a)
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        t = np.array([0.45 * np.cos(a), 0.12 * np.sin(2 * a), 0.6 * np.sin(a)])
+        out.append(np.concatenate([R, t[:, None]], axis=1))
+    return out
+
+
+def write_cli_scene(root, serve_model, kind):
+    """A scene on disk for the training CLI: the surfel scene's FULL_N points
+    with their colors, and CLI_IMAGES 8-bit PNGs, each the serving model's
+    render from one of cli_poses. "cli": a COLMAP scene (sparse/0, all
+    1280x720; the every-8th split gives 14 train, 2 test images).
+    "cli_nerfw": a Photo Tourism capture (phototourism/brandenburg-gate,
+    sparse/, images in CLI_NERFW_SIZES in turn, and a nerfw_split.csv with
+    CLI_NERFW_TEST as the test images). Returns (scene dir, points3D.bin
+    write seconds)."""
+    from wildgaussians_torch.datasets.colmap_utils import (Camera, Image, rotmat2qvec,
+                                                           write_cameras_binary,
+                                                           write_images_binary,
+                                                           write_points3D_arrays_binary)
+    from wildgaussians_torch.utils import convert_image_dtype, save_image
+    if kind == "cli":
+        scene, sparse, sizes = root / "colmap", root / "colmap" / "sparse" / "0", [(FULL_W, FULL_H)]
+    else:
+        scene = root / "phototourism" / "brandenburg-gate"
+        sparse, sizes = scene / "sparse", list(CLI_NERFW_SIZES)
+    sparse.mkdir(parents=True)
+    (scene / "images").mkdir()
+    f = FULL_W / 1.4
+    cameras = {i + 1: Camera(i + 1, "PINHOLE", w, h, np.array([f, f, w / 2, h / 2]))
+               for i, (w, h) in enumerate(sizes)}
+    images, names = {}, []
+    for i, pose in enumerate(cli_poses(CLI_IMAGES)):
+        cam_id = i % len(sizes) + 1
+        w, h = sizes[cam_id - 1]
+        color = serve_model.render(camera(pose, w, h, f))["color"]
+        name = f"{i:03d}.png"
+        save_image(scene / "images" / name, convert_image_dtype(color, np.uint8))
+        w2c = np.linalg.inv(np.concatenate([pose, [[0, 0, 0, 1]]], axis=0))
+        images[i + 1] = Image(i + 1, rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], cam_id, name,
+                              np.zeros((0, 2)), np.zeros((0,), np.int64))
+        names.append(name)
+    write_cameras_binary(cameras, sparse / "cameras.bin")
+    write_images_binary(images, sparse / "images.bin")
+    xyz, colors = surfel_points(FULL_N, FULL_W, FULL_H)
+    t0 = time.perf_counter()
+    write_points3D_arrays_binary(xyz.astype(np.float64),
+                                 np.clip(np.asarray(colors) * 255.0, 0, 255).astype(np.uint8),
+                                 sparse / "points3D.bin")
+    write_s = time.perf_counter() - t0
+    if kind == "cli_nerfw":
+        rows = ["filename\tid\tsplit\tdataset"] + [
+            f"{n}\t{i}\t{'test' if i in CLI_NERFW_TEST else 'train'}\tbrandenburg"
+            for i, n in enumerate(names)]
+        (scene / "nerfw_split.csv").write_text("\n".join(rows) + "\n")
+    return scene, write_s
+
+
+def cli_events(out):
+    """(train/psnr by step, every record) of the CLI's JSONL log."""
+    with open(out / "logs" / "events.jsonl", encoding="utf8") as fh:
+        records = [json.loads(line) for line in fh]
+    psnr = {r["step"]: r["value"] for r in records if r.get("tag") == "train/psnr"}
+    return psnr, records
+
+
+def ply_vertices(path):
+    with open(path, "rb") as fh:
+        for line in fh:
+            if line.startswith(b"element vertex"):
+                return int(line.split()[-1])
+            if line.strip() == b"end_header":
+                break
+    raise RuntimeError(f"no vertex count in {path}")
+
+
+def archive_png(archive, member):
+    """An 8-bit PNG from a predictions archive, as an array."""
+    import tarfile
+    from wildgaussians_torch.utils import read_image
+    with tarfile.open(archive, "r:gz") as tf:
+        return read_image(tf.extractfile(member))
+
+
+def check_cli_outputs(kind, scene, out, fits):
+    """The CLI run's outputs (see phase_cli); `fits` are the run's embedding
+    fits, in order. Returns what they show."""
+    from wildgaussians_torch import WildGaussians
+    from wildgaussians_torch.datasets.colmap import load_colmap_dataset
+    from wildgaussians_torch.datasets.phototourism import load_phototourism_dataset
+    from wildgaussians_torch.evaluation import compute_metrics
+    from wildgaussians_torch.utils import image_to_srgb
+    step = CLI_ITERS
+    psnr, records = cli_events(out)
+    windows = sorted(psnr)
+    check(windows == list(range(100, step + 1, 100)), f"{kind}: train/psnr windows {windows}")
+    check(psnr[windows[-1]] > psnr[windows[0]],
+          f"{kind}: train/psnr did not rise: {[psnr[w] for w in windows]}")
+    with open(out / f"results-{step}.json", encoding="utf8") as fh:
+        results = json.load(fh)
+    metrics = results["metrics"]
+    check(all(np.isfinite(metrics[k]) for k in ("psnr", "ssim", "mae", "mse")),
+          f"{kind}: results {metrics}")
+    ckpt = out / f"checkpoint-{step}"
+    for name in (f"chkpnt-{step}.npz", "point_cloud.ply", "config.yaml", "nb-info.json"):
+        check((ckpt / name).is_file(), f"{kind}: {ckpt / name} is missing")
+    with np.load(ckpt / f"chkpnt-{step}.npz") as npz:
+        live = int(npz["aux/alive"].sum())
+    vertices = ply_vertices(ckpt / "point_cloud.ply")
+    check(vertices == live, f"{kind}: the ply holds {vertices} vertices, the store {live} live")
+    from wildgaussians_torch.config import config_from_yaml_str
+    config = config_from_yaml_str((ckpt / "config.yaml").read_text(encoding="utf8"))
+
+    # the reloaded checkpoint renders test camera 0 as the CLI archived it
+    if kind == "cli":
+        test = load_colmap_dataset(scene, split="test")
+    else:
+        test = load_phototourism_dataset(scene, split="test")
+    name = os.path.relpath(test["image_paths"][0], test["image_paths_root"])
+    archive = out / f"predictions-{step}.tar.gz"
+    archived = archive_png(archive, f"color/{os.path.splitext(name)[0]}.png")
+    # its embedding under NeRF-W: the last fit of its left half (eval-all's)
+    test_embedding = next((f["embedding"] for f in reversed(fits) if f["image"] == name), None)
+    check((test_embedding is not None) == (kind == "cli_nerfw"),
+          f"{kind}: the fitted embedding of test image {name}")
+    model = WildGaussians(checkpoint=str(ckpt))
+    opts = {"embedding": test_embedding} if test_embedding is not None else None
+    again = image_to_srgb(model.render(test["cameras"][0], options=opts)["color"], np.uint8)
+    del model
+    diff = np.abs(again.astype(np.int32) - archived.astype(np.int32)).max(-1)
+    within = float((diff <= 1).mean())
+    check(again.shape == archived.shape and within >= 1.0 - TOL_RELOAD_FRAC,
+          f"{kind}: the reloaded checkpoint's render of {name} differs from the archived PNG "
+          f"({within} of pixels within 1/255)")
+    shown = {"train_psnr_windows": {str(w): psnr[w] for w in windows}, "results": metrics,
+             "tile_budget_after": {"max_tiles_per_gaussian": config.max_tiles_per_gaussian,
+                                   "pallas_big_fraction": config.pallas_big_fraction},
+             "results_protocol": results["evaluation_protocol"], "ply_vertices": vertices,
+             "reload_test0": {"image": name, "share_within_1_of_255": within,
+                              "max_diff": int(diff.max())},
+             "event_records": len(records)}
+    if kind == "cli_nerfw":
+        # the NeRF-W metrics: each test image's right half
+        psnrs = []
+        for path in test["image_paths"]:
+            stem = os.path.splitext(os.path.relpath(path, test["image_paths_root"]))[0]
+            gt, pred = (archive_png(archive, f"{d}/{stem}.png") for d in ("gt-color", "color"))
+            w = gt.shape[1]
+            psnrs.append(compute_metrics(pred[:, w // 2:], gt[:, w // 2:])["psnr"])
+        shown["right_half_psnr"] = psnrs
+        check(abs(float(np.mean(psnrs)) - metrics["psnr"]) <= 1e-4,
+              f"{kind}: results psnr {metrics['psnr']} is not the right halves' {psnrs}")
+        check(results["evaluation_protocol"] == "nerfw", f"{kind}: protocol")
+    return shown
+
+
+def phase_cli(serve_model, kind, errs):
+    """The training CLI in process (`wildgaussians_torch.train.main`) at full
+    width: "cli" trains configs/default.yml on a COLMAP scene and scores it
+    under the default protocol; "cli_nerfw" trains configs/phototourism.yml
+    on a Photo Tourism capture (four image sizes) and scores it under the
+    NeRF-W protocol, which fits an appearance embedding to each scored
+    image's left half (CLI_NERFW_FIT_ITERS Adam iterations of a one-pass
+    render and its backward). Both with uncertainty disabled, CLI_ITERS
+    iterations and the JSONL (and, where installed, the tensorboard)
+    logger. Fatal: a non-zero exit, train/psnr not rising between its two
+    windows, a non-finite result, a missing checkpoint file, a ply whose
+    vertex count is not the live count, a reloaded checkpoint whose render
+    of test image 0 differs from the archived PNG by more than 1/255 on
+    more than 0.1 % of the pixels, and (NeRF-W) results that are not the
+    right halves' metrics. K1-K3 are held against their plain versions on the arguments
+    of the first training step, of the first embedding iteration
+    ("cli_nerfw") and of the first evaluation render ("cli": K1), after
+    the run (those launches are not counted). Returns each kernel's
+    launches over the run."""
+    import importlib.util
+    from pathlib import Path
+    from wildgaussians_torch import train as ttrain
+    from wildgaussians_torch.models.wildgaussians import WildGaussians
+    from wildgaussians_torch.spans import SpanTimer
+    ks = [k for k in kernels() if kind in k["paths"]]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=f"wg_{kind}_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        scene, points_write_s = write_cli_scene(root, serve_model, kind)
+        write_s = time.perf_counter() - t0
+        out = root / "out"
+        logger = "both" if importlib.util.find_spec("tensorboard") else "jsonl"
+        argv = ["--data", str(scene), "--output", str(out), "--set", "uncertainty_mode=disabled",
+                "--set", f"iterations={CLI_ITERS}", "--eval-few-iters",
+                CLI_EVAL_FEW[kind], "--logger", logger]
+        if kind == "cli_nerfw":
+            argv += ["--dataset-type", "phototourism", "--set",
+                     f"appearance_embedding_optim_iters={CLI_NERFW_FIT_ITERS}"]
+        step_ms, captured, fits = [], {"train": {}, "embed": {}, "eval": {}}, []
+
+        def train_iteration(self, step, camera_id=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with blend_calls(captured["train"], first=True) if step == 0 \
+                    else contextlib.nullcontext():
+                metrics = orig_train_iteration(self, step, camera_id)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return metrics
+        orig_train_iteration = WildGaussians.train_iteration
+
+        def optimize_embedding(self, dataset, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with blend_calls(captured["embed"], first=True):
+                out_ = orig_optimize(self, dataset, **kwargs)
+            fits.append({"image": os.path.relpath(dataset["image_paths"][0],
+                                                  dataset["image_paths_root"]),
+                         "size": [int(x) for x in dataset["cameras"].image_sizes[0]],
+                         "s": time.perf_counter() - t0,
+                         "iterations": len(out_["metrics"]["loss"]),
+                         "psnr_first_last": [out_["metrics"]["psnr"][0],
+                                             out_["metrics"]["psnr"][-1]],
+                         "embedding": out_["embedding"]})
+            return out_
+        orig_optimize = WildGaussians.optimize_embedding
+
+        def render(self, camera_, **kwargs):
+            with blend_calls(captured["eval"], first=True) if not captured["eval"] \
+                    else contextlib.nullcontext():
+                return orig_render(self, camera_, **kwargs)
+        orig_render = WildGaussians.render
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(replaced(WildGaussians, "train_iteration", train_iteration))
+            stack.enter_context(replaced(WildGaussians, "optimize_embedding", optimize_embedding))
+            stack.enter_context(replaced(WildGaussians, "render", render))
+            timer = stack.enter_context(SpanTimer())
+            reset_counts(ks)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = ttrain.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = launch_counts(ks)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        spans = {k: (ms / 1e3, n) for k, (ms, n) in timer.ms().items()}
+        del timer
+        check(rc == 0, f"{kind}: the CLI exited with {rc}")
+        shown = check_cli_outputs(kind, scene, out, fits)
+    # the holds, after the counted run
+    for unit, what in (("train", "the first training step"),
+                       ("embed", "the first embedding iteration"),
+                       ("eval", "the first evaluation render")):
+        if captured[unit]:
+            label = f"{kind}, {what}, {captured[unit]['blend_fwd'][4]} passes"
+            hold_raster(captured[unit], {}, label, errs)
+    check(bool(captured["train"]) and bool(captured["embed"] if kind == "cli_nerfw"
+                                           else captured["eval"]), f"{kind}: recorded calls")
+    del captured
+    torch.cuda.empty_cache()
+    # seconds by span: (sum, count); a span is the device timeline from its
+    # start to its end, the host's time where it does host work alone
+    n_images = spans.get("eval_render", (0.0, 0))[1]
+    per_image = {k: spans.get(k, (0.0, 0))[0] / max(n_images, 1)
+                 for k in ("eval_render", "embedding_fit", "png_encode", "eval_metrics")}
+    fit_s = sum(f["s"] for f in fits)
+    iters = sum(f["iterations"] for f in fits)
+    emit({"phase": kind, "argv": argv, "size": [FULL_W, FULL_H], "points": FULL_N,
+          "images": CLI_IMAGES, "scene_write_s": write_s, "points3D_write_s": points_write_s,
+          "cli_s": run_s, "phase_s": time.perf_counter() - t_phase,
+          **{f"{k}_s": spans.get(k, (0.0, 0))[0] for k in
+             ("dataset_load", "points3D_parse", "image_decode", "setup")},
+          "points3D_parses": spans.get("points3D_parse", (0.0, 0))[1],
+          "steps": len(step_ms), "warmup_step_ms": step_ms[0],
+          "steady_step_ms": float(np.mean(step_ms[1:])),
+          "step_ms_1_to_9": float(np.mean(step_ms[1:10])),
+          "step_ms_20_on": float(np.mean(step_ms[20:])),
+          # eval_render is the protocol's render: under NeRF-W it holds the
+          # embedding fit (embedding_fit) of the image's left half
+          "eval_all_images": n_images, "eval_all_s_per_image": per_image,
+          "optimize_embedding": {"fits": len(fits), "s": fit_s,
+                                 "s_per_image": fit_s / max(len(fits), 1),
+                                 "iterations": iters,
+                                 "ms_per_iteration": fit_s * 1e3 / max(iters, 1),
+                                 "each": [{k: v for k, v in f.items() if k != "embedding"}
+                                          for f in fits]},
+          "peak_mem_gib": peak_gib, "launches": launches, **shown})
+    return launches
+
+
 def hold_knn(points, label):
     """The k-NN init statistic (`ops/knn.py`, the JAX trainer's default
     native k-NN's function) on the card against the same call on the CPU, on
@@ -1796,6 +2136,9 @@ def main():
         # densify/prune, the opacity reset and capacity growth under each engine
         for path in ("densify", "partition_densify"):
             launches[path] = phase_densify(serve_model, cams, path, errs)
+        # the training CLI end to end, under each evaluation protocol
+        for path in ("cli", "cli_nerfw"):
+            launches[path] = phase_cli(serve_model, path, errs)
         del serve_model
         torch.cuda.empty_cache()
 

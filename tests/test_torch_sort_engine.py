@@ -1,7 +1,9 @@
 """The port's sort engine against the JAX package's (pack16=False): the same
 preprocess arrays must give exactly the same entry table, tile ranges, slot
 order, big-Gaussian pool, visible-cell counts and overflow. The engine sizes
-are compared in test_torch_ops.py.
+are compared in test_torch_ops.py. The port culls the rect cells in chunks
+(`sort_engine._CELL_CHUNK`); chunks of 3, which split D_MAX's cells
+unevenly, give the same table and counts as one chunk of all of them.
 
 One test (see test_torch_isolation.py)."""
 import jax.numpy as jnp
@@ -54,7 +56,7 @@ def _preprocess(seed):
     return arrays, colors, w, h
 
 
-def test_sort_engine_matches_jax_exactly():
+def test_sort_engine_matches_jax_exactly(monkeypatch):
     arrays, colors, w, h = _preprocess(7)
     n = arrays["valid"].shape[0]
     tt = np.minimum(arrays["tiles_touched"], D_MAX)
@@ -81,6 +83,16 @@ def test_sort_engine_matches_jax_exactly():
     rows = 6 + 3 * N_PASSES
     assert t.table.shape == (rows, n_bin)
     np.testing.assert_array_equal(t.table.numpy(), j_table[:rows, :n_bin])
+
+    # the same result whatever the cell chunk
+    monkeypatch.setattr(tsort, "_CELL_CHUNK", 3)
+    t3 = tsort._build_sorted_table(
+        make_grid(w, h, 16), n, D_MAX, N_PASSES, D_SMALL, BIG_FRACTION,
+        *[torch.tensor(a) for a in geo], torch.tensor(colors),
+        *[torch.tensor(np.asarray(a)) for a in rest])
+    for got, want in zip(t3, t):
+        assert torch.equal(got, want)
+    monkeypatch.undo()
 
     # visible-cell counts and overflow
     jpre = JPre(**{k: jnp.asarray(v) for k, v in arrays.items()})

@@ -1,7 +1,8 @@
 """WildGaussians in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
-The serving path of the WildGaussians method: load a checkpoint, take a
-camera, return an image. Module names follow the JAX package
+The WildGaussians method: train a scene from a dataset (the `train` CLI:
+`python -m wildgaussians_torch.train`), evaluate it, and serve renders of a
+checkpoint. Module names follow the JAX package
 (`wildgaussians_tpu`) so that each piece has a counterpart of the same name;
 this package imports nothing of it.
 

@@ -51,6 +51,7 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
                     render_depth: bool = False,
                     mean2d_hook: Optional[torch.Tensor] = None,
                     absgrad_hook: Optional[torch.Tensor] = None,
+                    return_raw: bool = True,
                     actual_size: Optional[tuple] = None) -> RenderPkg:
     """One camera render. `gaussians` are post-activation (get_gaussians).
 
@@ -59,7 +60,9 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
     factors (0.5 w, 0.5 h) of the abs-gradient channel. `mean2d_hook` [N,2]
     (zeros) is added to the projected means, so its gradient is the
     gradient of the means in pixels; `absgrad_hook` [N,2] (zeros) receives
-    the fused abs channel in channel 0 (NDC-scaled; channel 1 is 0)."""
+    the fused abs channel in channel 0 (NDC-scaled; channel 1 is 0). With
+    appearance on, `return_raw=False` skips the raw pass (the toned image
+    then stands in for `raw_render`, and its final_T gives `accumulation`)."""
     max_tiles_per_gaussian = config.max_tiles_per_gaussian
     with span("camera"):
         camera = make_camera_params_torch(pose, intrinsics, width, height)
@@ -93,7 +96,8 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
     grid = make_grid(width, height, 16)
 
     passes = []
-    want_raw = not config.appearance_enabled or config.appearance_separate_tuned_color
+    want_raw = (not config.appearance_enabled
+                or (config.appearance_separate_tuned_color and return_raw))
     if want_raw:
         passes.append(("raw", colors))
     if config.appearance_enabled:

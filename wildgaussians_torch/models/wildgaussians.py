@@ -5,16 +5,19 @@ Counterpart of `wildgaussians_tpu/models/wildgaussians.py`: construction
 (`_build_train_step`'s loss and step, without the uncertainty model),
 `train_iteration` with the host schedule after the step (densify/prune,
 capacity growth, opacity reset), `render`, `get_embedding`,
-`get_train_embedding` and `save`. Checkpoints use the JAX package's format
-(see io/convert.py), both ways.
+`get_train_embedding`, `optimize_embedding`, the Method protocol's
+`install`, `get_method_info` and `get_info`, and `save` (the checkpoint and
+`point_cloud.ply`). Checkpoints use the JAX package's format (see
+io/convert.py), both ways.
 
 Not ported yet (ROADMAP.md, Queue 1): the uncertainty model (training with
 an `uncertainty_mode` other than "disabled" raises at construction;
-rendering never uses it), `optimize_embedding` and the point-cloud export of
-`save`.
+rendering never uses it, and `optimize_embedding` raises where its loss
+would).
 """
 import hashlib
 import logging
+import math
 import os
 import random
 from typing import Any, Dict, Optional
@@ -27,11 +30,13 @@ from ..config import Config, config_from_yaml_str, config_to_yaml, load_config_y
 from ..device import resolve_device
 from ..io.convert import (params_from_numpy, state_to_numpy, train_state_from_numpy,
                           trainable_tensors)
+from ..io.ply import save_ply
 from ..ops.blend import check_binning
 from ..ops.knn import mean_knn_dist2
 from ..ops.ssim import ssim
 from ..spans import span
-from ..types import Cameras, Dataset, RenderOutput, camera_model_to_int
+from ..types import (Cameras, Dataset, MethodInfo, ModelInfo, OptimizeEmbeddingOutput,
+                     RenderOutput, camera_model_to_int)
 from ..utils import convert_image_dtype
 from . import gaussian_store as gs
 from .appearance import AppearanceMLP
@@ -56,6 +61,15 @@ def _pad_to(img: np.ndarray, h: int, w: int) -> np.ndarray:
 def scale_grads(values: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The forward value unchanged, the gradient scaled by `scale`."""
     return values * scale + values.detach() * (1 - scale)
+
+
+def _no_uncertainty(config: Config):
+    """Raise for a configuration whose training needs the uncertainty model."""
+    if config.uncertainty_mode != "disabled":
+        raise NotImplementedError(
+            f"uncertainty_mode {config.uncertainty_mode!r}: the uncertainty model "
+            "is not ported yet (ROADMAP.md, Queue 1, uncertainty); train with "
+            "uncertainty_mode: disabled")
 
 
 def _check_supported(config: Config):
@@ -128,11 +142,7 @@ class WildGaussians:
         self.mlp: Optional[AppearanceMLP] = None
 
         if train_dataset is not None:
-            if self.config.uncertainty_mode != "disabled":
-                raise NotImplementedError(
-                    f"uncertainty_mode {self.config.uncertainty_mode!r}: the uncertainty model "
-                    "is not ported yet (ROADMAP.md, Queue 1, uncertainty); train with "
-                    "uncertainty_mode: disabled")
+            _no_uncertainty(self.config)
             self._setup_train(train_dataset, load_state)
         elif load_state is not None:
             self.params, self.mlp, self.aux = params_from_numpy(load_state, self.config,
@@ -358,6 +368,27 @@ class WildGaussians:
                 self.params, self.adam, self.aux = gs.grow_capacity(
                     self.params, self.adam, self.aux, new_capacity)
 
+    # --------------------------------------------------------------- protocol
+
+    @classmethod
+    def install(cls):
+        """Method protocol hook; nothing to install."""
+
+    @classmethod
+    def get_method_info(cls) -> MethodInfo:
+        return MethodInfo(
+            method_id="wild-gaussians-torch",
+            required_features=frozenset(("color", "points3D_xyz")),
+            supported_camera_models=frozenset(("pinhole",)),
+        )
+
+    def get_info(self) -> ModelInfo:
+        return ModelInfo(
+            **self.get_method_info(),
+            num_iterations=self.config.iterations,
+            loaded_step=self._loaded_step,
+        )
+
     def train_iteration(self, step: int, camera_id: Optional[int] = None) -> Dict[str, float]:
         """One training iteration (`step` is 0-indexed). Picks the camera
         from a shuffled stack (the JAX package's sequence) unless
@@ -374,6 +405,7 @@ class WildGaussians:
                 self._viewpoint_stack = list(range(len(self.train_cameras)))
             camera_id = self._viewpoint_stack.pop(
                 self._random.randint(0, len(self._viewpoint_stack) - 1))
+        self._last_camera_id = camera_id   # the CLI's debug snapshot names it
         densify_enabled = iteration < self.config.densify_until_iter
         metrics = self._train_step(camera_id, iteration, densify_enabled)
         self._densify_schedule(iteration, densify_enabled)
@@ -465,16 +497,135 @@ class WildGaussians:
                 out["depth"] = pkg.depth[:h, :w].cpu().numpy()
         return out
 
+    # ---------------------------------------------------- embedding optimization
+
+    def _embed_opt_inputs(self, dataset: Dataset):
+        """The fixed inputs of `optimize_embedding`'s loss for the one image
+        of `dataset`: (pose, intrinsics, (w, h), gt, pixel mask, loss
+        multiplier or None), the images padded to the 16-pixel canvas."""
+        camera = dataset["cameras"].item()
+        if int(camera.camera_models) != camera_model_to_int("pinhole"):
+            raise ValueError("Only pinhole cameras are supported")
+        w, h = int(camera.image_sizes[0]), int(camera.image_sizes[1])
+        pw, ph = _round_up(w, 16), _round_up(h, 16)
+
+        def dev(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+        gt = dev(_pad_to(convert_image_dtype(dataset["images"][0], np.float32)[..., :3], ph, pw))
+        pixmask = dev(_pad_to(np.ones((h, w, 1), np.float32), ph, pw)[..., 0])
+        loss_mult = None
+        if dataset.get("masks") is not None:
+            m = convert_image_dtype(dataset["masks"][0], np.float32)
+            loss_mult = dev(_pad_to(m[..., None], ph, pw)[..., 0])
+        return (dev(np.asarray(camera.poses, np.float32)),
+                dev(np.asarray(camera.intrinsics, np.float32)), (float(w), float(h)),
+                gt, pixmask, loss_mult)
+
+    def _embed_opt_loss(self, gaussians, embedding, pose, intr, actual_size, gt, pixmask,
+                        loss_mult):
+        """The loss of one embedding-optimization step: the toned image only
+        (return_raw=False) against `gt` over the pixel mask, with
+        `loss_mult` scaling the gradients; returns (loss, mse)."""
+        config = self.config
+        pkg = render_internal(
+            gaussians, self.params, self.mlp, self.aux.active_sh_degree, self.aux.alive,
+            config, pose, intr, gt.shape[1], gt.shape[0], embedding=embedding,
+            kernel_size=config.kernel_size, return_raw=False, actual_size=actual_size)
+        image = pkg.render * pixmask[..., None]
+        if loss_mult is not None:
+            image = scale_grads(image, loss_mult[..., None])
+        npix = torch.sum(pixmask)
+        mse = torch.sum(torch.square(image - gt) * pixmask[..., None]) / (npix * 3)
+        optim_type = config.appearance_optim_type
+        if optim_type.endswith("-scaled"):
+            optim_type = optim_type[:-len("-scaled")]
+        if optim_type == "mse":
+            loss = mse
+        elif optim_type == "dssim+l1":
+            l1 = torch.sum(torch.abs(image - gt) * pixmask[..., None]) / (npix * 3)
+            ssim_v = torch.sum(ssim(image, gt, size_average=False) * pixmask) / npix
+            loss = (1.0 - config.lambda_dssim) * l1 + config.lambda_dssim * (1.0 - ssim_v)
+        else:
+            raise ValueError(f"Unknown appearance optimization type {config.appearance_optim_type}")
+        return loss, mse
+
+    def optimize_embedding(self, dataset: Dataset, *,
+                           embedding: Optional[np.ndarray] = None) -> OptimizeEmbeddingOutput:
+        """Fit an appearance embedding to the one image of `dataset` with the
+        model fixed: `appearance_embedding_optim_iters` steps of Adam (b1
+        0.9, b2 0.999, eps 1e-8, lr `appearance_embedding_optim_lr`), each
+        on the gradient of the toned render's loss against the image
+        (`appearance_optim_type`: "mse" or "dssim+l1", optionally
+        "-scaled"), from `embedding` or zeros. Occluder masks in the dataset
+        scale the gradients. Returns the embedding and each step's loss,
+        mse and psnr."""
+        if not self.config.appearance_enabled:
+            raise NotImplementedError("Trying to optimize embedding with appearance_enabled=False")
+        if self.config.appearance_optim_type.endswith("-scaled"):
+            # the uncertainty model's loss multiplier takes part in the loss
+            _no_uncertainty(self.config)
+        inputs = self._embed_opt_inputs(dataset)
+        emb = (torch.as_tensor(np.asarray(embedding, np.float32), device=self.device)
+               if embedding is not None else self.get_embedding(None)).clone()
+        mu, nu = torch.zeros_like(emb), torch.zeros_like(emb)
+        lr = self.config.appearance_embedding_optim_lr
+        # the step's constants in f32, as the JAX step forms them
+        b1, b2, eps = (torch.tensor(x, dtype=torch.float32, device=self.device)
+                       for x in (0.9, 0.999, 1e-8))
+        with torch.no_grad():
+            gaussians = gs.get_gaussians(self.params, self.aux)
+        losses, mses = [], []
+        for t in range(1, self.config.appearance_embedding_optim_iters + 1):
+            var = emb.detach().requires_grad_(True)
+            with span("embed_forward"):
+                loss, mse = self._embed_opt_loss(gaussians, var, *inputs)
+            with span("embed_backward"):
+                (g,) = torch.autograd.grad(loss, [var])
+            with torch.no_grad(), span("embed_adam"):
+                mu = b1 * mu + (1 - b1) * g
+                nu = b2 * nu + (1 - b2) * g * g
+                mhat = mu / (1 - b1 ** t)
+                nhat = nu / (1 - b2 ** t)
+                emb = emb - lr * mhat / (torch.sqrt(nhat) + eps)
+            losses.append(loss.detach())
+            mses.append(mse.detach())
+        # one host transfer for every step's values
+        hist = (torch.stack([torch.stack(losses), torch.stack(mses)]).cpu().numpy()
+                if losses else np.zeros((2, 0), np.float32))
+        mse_list = [float(x) for x in hist[1]]
+        return {
+            "embedding": emb.cpu().numpy(),
+            "metrics": {"psnr": [-10 * math.log10(max(x, 1e-10)) for x in mse_list],
+                        "mse": mse_list, "loss": [float(x) for x in hist[0]]},
+        }
+
     # ------------------------------------------------------------- checkpoints
 
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        """The training state as flat numpy arrays under the JAX package's
+        `_state_dict` keys (what `chkpnt-<step>.npz` holds)."""
+        return state_to_numpy(self.params, self.mlp, self.aux, self.adam, self.spatial_lr_scale)
+
     def save(self, path: str):
-        """Write `chkpnt-<step>.npz` (the JAX package's `_state_dict` keys:
-        params, Adam moments and step, every aux buffer, spatial_lr_scale),
-        its `.sha256` and `config.yaml`. The JAX package loads it."""
+        """Write `point_cloud.ply` (the live Gaussians: xyz, features_dc,
+        the activated and filtered opacities and scales, rotations),
+        `chkpnt-<step>.npz` (the JAX package's `_state_dict` keys: params,
+        Adam moments and step, every aux buffer, spatial_lr_scale), its
+        `.sha256` and `config.yaml`. The JAX package loads both."""
         if not hasattr(self, "adam"):
             raise RuntimeError("save needs a training state (construct with train_dataset)")
         os.makedirs(path, exist_ok=True)
-        state = state_to_numpy(self.params, self.mlp, self.aux, self.adam, self.spatial_lr_scale)
+        with torch.no_grad():
+            gaussians = gs.get_gaussians(self.params, self.aux)
+            alive = self.aux.alive
+
+            def live(x):
+                return x.detach()[alive].cpu().numpy()
+            save_ply(os.path.join(path, "point_cloud.ply"),
+                     xyz=live(self.params["xyz"]), features_dc=live(self.params["features_dc"]),
+                     opacities=live(gaussians["opacities"]), scales=live(gaussians["scales"]),
+                     rotations=live(self.params["rotations"]))
+        state = self.state_dict()
         ckpt_path = os.path.join(path, f"chkpnt-{self.step}.npz")
         np.savez(ckpt_path, **state)
         with open(os.path.join(path, "config.yaml"), "w", encoding="utf8") as f:

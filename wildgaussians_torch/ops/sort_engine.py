@@ -48,8 +48,9 @@ def _sort_engine_sizes(grid: TileGrid, n: int, d_max: int,
     return SortEngineSizes(d1, d2_extra, m_cap, R, 32 - tile_bits)
 
 
-def _tile_of_cell(rmin: torch.Tensor, rw: torch.Tensor, j: int, grid_x: int) -> torch.Tensor:
-    """Tile id of a Gaussian's j-th rect cell. rmin [m,2]; rw [m]."""
+def _tile_of_cell(rmin: torch.Tensor, rw: torch.Tensor, j, grid_x: int) -> torch.Tensor:
+    """Tile id of a Gaussian's j-th rect cell. rmin [m,2]; rw [m]; j an int,
+    or [c, 1] cells for a [c, m] result."""
     ty = rmin[:, 1] + j // rw
     tx = rmin[:, 0] + j % rw
     return (ty * grid_x + tx).to(torch.int32)
@@ -92,21 +93,40 @@ def _cell_visible(tile_m, mean_m2, con_m, thr_m, grid: TileGrid) -> torch.Tensor
     return q <= thr_m
 
 
+# rect cells taken together by _select_cells: its launches fall with the
+# chunk, its temporaries (a few [chunk, m] tensors) grow with it
+_CELL_CHUNK = 8
+
+
 def _select_cells(grid: TileGrid, d_max: int, rmin, rw, tt, vald, mean_m2,
                   con_m, thr_m, d_lo: int, d_hi: int):
     """Tiles of the visible cells packed to slots [d_lo, d_hi), and the total
-    visible-cell count of each Gaussian."""
+    visible-cell count of each Gaussian.
+
+    The rect cells are culled _CELL_CHUNK at a time ([chunk, m] tensors,
+    the same elementwise operations as one cell at a time); a visible cell
+    whose rank among its Gaussian's visible cells falls in [d_lo, d_hi) is
+    scattered to that slot (every other cell to a spare row). So a call
+    costs O(d_max / _CELL_CHUNK) launches, not O(d_max (d_hi - d_lo)): with
+    the tile budget grown to 128, one launch per cell and slot made ~20k
+    launches a step."""
     m = rw.shape[0]
-    prefix = torch.zeros((m,), dtype=torch.int32, device=rw.device)
-    sel = [torch.zeros((m,), dtype=torch.int32, device=rw.device)
-           for _ in range(d_hi - d_lo)]
-    for j in range(d_max):
+    dev = rw.device
+    prefix = torch.zeros((m,), dtype=torch.int32, device=dev)
+    n_sel = d_hi - d_lo
+    out = torch.zeros((n_sel + 1, m), dtype=torch.int32, device=dev)   # the last row: spare
+    for j0 in range(0, d_max, _CELL_CHUNK):
+        j = torch.arange(j0, min(j0 + _CELL_CHUNK, d_max), dtype=torch.int32,
+                         device=dev)[:, None]
         tj = _tile_of_cell(rmin, rw, j, grid.grid_x)
-        vj = (j < tt) & vald & _cell_visible(tj, mean_m2, con_m, thr_m, grid)
-        for jo in range(d_lo, d_hi):
-            sel[jo - d_lo] = torch.where(vj & (prefix == jo), tj, sel[jo - d_lo])
-        prefix = prefix + vj.to(torch.int32)
-    return sel, prefix
+        vj = (j < tt[None]) & vald[None] & _cell_visible(tj, mean_m2, con_m, thr_m, grid)
+        vi = vj.to(torch.int32)
+        rank = prefix[None] + torch.cumsum(vi, dim=0, dtype=torch.int32) - vi
+        if n_sel > 0:
+            slot = torch.where(vj & (rank >= d_lo) & (rank < d_hi), rank - d_lo, n_sel)
+            out.scatter_(0, slot.long(), tj)
+        prefix = prefix + vi.sum(dim=0, dtype=torch.int32)
+    return list(out[:n_sel]), prefix
 
 
 def visible_cell_counts(mean2d, conic, opacity, rect_min, rect_max,

@@ -1,13 +1,16 @@
-"""Named stages of a render, timed on the device when asked.
+"""Named stages of a render, a training step or the training CLI, timed on
+the device when asked.
 
-`span(name)` wraps one stage of the serving path. While no `SpanTimer` is
+`span(name)` wraps one stage. While no `SpanTimer` is
 active it only reads one module global. Inside `with SpanTimer() as timer:`
 each span records a CUDA event on the current stream where its stage starts
 and another where it ends, and `timer.ms()` sums, per name, the device
 timeline between the two: the stage's kernels and the device's idle gaps
 between them, which is what the stage costs a request while the device
-waits on the host. Recording synchronises nothing; `ms()` synchronises once.
-`chip_smoke.py` reads the spans in its profile phase.
+waits on the host; for a stage of host work alone (a file parsed, a PNG
+encoded) with the device idle, that is its time on the host's clock.
+Recording synchronises nothing; `ms()` synchronises once. `chip_smoke.py`
+reads the spans in its profile, train and CLI phases.
 """
 import contextlib
 from typing import Dict, List, Optional, Tuple

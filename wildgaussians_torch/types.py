@@ -1,25 +1,27 @@
-"""Public contracts of the port: cameras, the training dataset and the
-render output.
+"""Public contracts of the port: cameras, datasets, render output and the
+method, evaluation-protocol and logger protocols.
 
-The port's own copy of the parts of `wildgaussians_tpu/types.py` that
-rendering and training use (Cameras, new_cameras, camera_model_to_int,
-Dataset, RenderOutput).
-Containers are numpy-based on the host; the render path moves what it needs
-to the device itself.
+The port's own copy of `wildgaussians_tpu/types.py` without the
+`Trajectory*` types (only trajectory rendering uses them, which is not
+ported yet). Containers are numpy-based on the host; the render path moves
+what it needs to the device itself.
 """
 import dataclasses
+import typing
+from abc import abstractmethod
 from dataclasses import dataclass
-from typing import (Callable, Dict, Iterator, List, Literal, Optional, Sequence, Union,
-                    get_args)
+from typing import (Any, Callable, Dict, FrozenSet, Iterable, Iterator, List, Literal, Optional,
+                    Protocol, Sequence, Union, get_args, runtime_checkable)
 
 import numpy as np
 
 try:
-    from typing import Required, TypedDict
+    from typing import NotRequired, Required, TypedDict
 except ImportError:  # pragma: no cover
-    from typing_extensions import Required, TypedDict  # type: ignore
+    from typing_extensions import NotRequired, Required, TypedDict  # type: ignore
 
 CameraModel = Literal["pinhole", "opencv", "opencv_fisheye", "full_opencv"]
+DatasetFeature = Literal["color", "points3D_xyz", "points3D_rgb"]
 
 
 def camera_model_to_int(camera_model: CameraModel) -> int:
@@ -138,6 +140,11 @@ class _IncompleteDataset(TypedDict, total=True):
     images_points3D_indices: Optional[List[np.ndarray]]
 
 
+class UnloadedDataset(_IncompleteDataset):
+    """A dataset whose images are not decoded yet (dataset_load_features)."""
+    images: NotRequired[Optional[Union[np.ndarray, List[np.ndarray]]]]
+
+
 class Dataset(_IncompleteDataset):
     """A loaded training set: cameras, images (uint8 or float [H, W, 3+]),
     optional occluder masks and the sparse point cloud that seeds the
@@ -149,3 +156,111 @@ class RenderOutput(TypedDict, total=False):
     color: Required[np.ndarray]  # [h w 3]
     depth: np.ndarray  # [h w]
     accumulation: np.ndarray  # [h w]
+
+
+class OptimizeEmbeddingOutput(TypedDict):
+    embedding: np.ndarray
+    render_output: RenderOutput
+    metrics: NotRequired[Dict[str, Sequence[float]]]
+
+
+class MethodInfo(TypedDict, total=False):
+    method_id: Required[str]
+    required_features: FrozenSet[DatasetFeature]
+    supported_camera_models: FrozenSet
+
+
+class ModelInfo(TypedDict, total=False):
+    method_id: Required[str]
+    num_iterations: Required[int]
+    loaded_step: Optional[int]
+    loaded_checkpoint: Optional[str]
+    batch_size: int
+    eval_batch_size: int
+    required_features: FrozenSet[DatasetFeature]
+    supported_camera_models: FrozenSet
+    hparams: Dict[str, Any]
+
+
+@runtime_checkable
+class Method(Protocol):
+    """The NerfBaselines-style method protocol."""
+
+    def __init__(self, *,
+                 checkpoint: Union[str, None] = None,
+                 train_dataset: Optional[Dataset] = None,
+                 config_overrides: Optional[Dict[str, Any]] = None):
+        pass
+
+    @classmethod
+    def install(cls):
+        pass
+
+    @classmethod
+    @abstractmethod
+    def get_method_info(cls) -> MethodInfo:
+        raise NotImplementedError()
+
+    @abstractmethod
+    def get_info(self) -> ModelInfo:
+        raise NotImplementedError()
+
+    @abstractmethod
+    def get_train_embedding(self, index: int) -> Optional[np.ndarray]:
+        return None
+
+    @abstractmethod
+    def optimize_embedding(self, dataset: Dataset, *,
+                           embedding: Optional[np.ndarray] = None) -> OptimizeEmbeddingOutput:
+        raise NotImplementedError()
+
+    @abstractmethod
+    def render(self, camera: Cameras, *, options: Optional[Dict] = None) -> RenderOutput:
+        raise NotImplementedError()
+
+    @abstractmethod
+    def train_iteration(self, step: int):
+        raise NotImplementedError()
+
+    @abstractmethod
+    def save(self, path: str):
+        raise NotImplementedError()
+
+
+@runtime_checkable
+class EvaluationProtocol(Protocol):
+    def get_name(self) -> str: ...
+    def render(self, method: Method, dataset: Dataset) -> RenderOutput: ...
+    def evaluate(self, predictions: RenderOutput,
+                 dataset: Dataset) -> Dict[str, Union[float, int]]: ...
+    def accumulate_metrics(self, metrics: Iterable[Dict[str, Union[float, int]]]
+                           ) -> Dict[str, Union[float, int]]: ...
+
+
+@runtime_checkable
+class LoggerEvent(Protocol):
+    def add_scalar(self, tag: str, value: Union[float, int]) -> None: ...
+    def add_text(self, tag: str, text: str) -> None: ...
+    def add_image(self, tag: str, image: np.ndarray, display_name: Optional[str] = None,
+                  description: Optional[str] = None, **kwargs) -> None: ...
+    def add_embedding(self, tag: str, embeddings: np.ndarray, *,
+                      images: Optional[List[np.ndarray]] = None,
+                      labels: Union[None, List[Dict[str, str]], List[str]] = None) -> None: ...
+    def add_plot(self, tag: str, *data: np.ndarray,
+                 axes_labels: Optional[Sequence[str]] = None,
+                 title: Optional[str] = None, **kwargs) -> None: ...
+    def add_histogram(self, tag: str, values: np.ndarray, *,
+                      num_bins: Optional[int] = None) -> None: ...
+
+
+@runtime_checkable
+class Logger(Protocol):
+    def add_event(self, step: int) -> typing.ContextManager[LoggerEvent]: ...
+    def add_scalar(self, tag: str, value: Union[float, int], step: int) -> None: ...
+    def add_text(self, tag: str, text: str, step: int) -> None: ...
+    def add_image(self, tag: str, image: np.ndarray, step: int, *,
+                  display_name: Optional[str] = None,
+                  description: Optional[str] = None) -> None: ...
+    def add_embedding(self, tag: str, embeddings: np.ndarray, step: int, *,
+                      images: Optional[List[np.ndarray]] = None,
+                      labels: Union[None, List[Dict[str, str]], List[str]] = None) -> None: ...
