@@ -16,12 +16,21 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      its plain PyTorch version on the card (K1 and K2 for 1-3 color passes,
      K3), the whole render path on the card against the same path on the
      CPU, and one training step on the card against the same step on the
-     CPU from the same init (every parameter's gradient and the metrics);
-     then the store functions on the card against the CPU, from the CPU
+     CPU from the same init (every parameter's gradient, the metrics, and
+     the SSIM map the card's step computed against the CPU's on its inputs,
+     with the process's TF32 flags left at torch's defaults: the entry
+     points pin full f32 themselves); then the store functions on the card
+     against the CPU, from the CPU
      step's store copied to each device with the same split normals:
      densify_and_prune (both abs-gradient modes, size pruning on; alive masks
      and stats equal unless a deciding value lies within 1e-6 of its
      threshold, at most 2 such slots), reset_opacity and grow_capacity;
+     then the training step with the uncertainty model (dino, no dropout,
+     acting from the first step, the head's convolution scaled so that
+     loss_mult is 0 on some pixels and 1 on others), card vs CPU: its loss, every metric, the
+     head's gradients beside the Gaussians', its loss_mult and new
+     batch-norm statistics; the DINO features of a render letterboxed to
+     336 (timed on the card) and loss_mult_for_image, card vs CPU;
      then the same render path and training step with `pallas_binning:
      partition`, and K5 and K6 against their plain versions (bit for bit)
      on every call the card's partition step made;
@@ -48,7 +57,13 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      K3 are held against their plain versions on the arguments the warm-up
      step passed them, and K2 and K3 timed there beside their plain
      versions, their bounds and (K3) the PyTorch call that computes the
-     same function;
+     same function. Then "train_uncertainty": the same set-up and steps with
+     configs/default.yml's uncertainty model (the random-init DINOv2, dropout
+     0.5) acting from the first step (no warm-up, no protected window), with
+     its spans (dino_gt on a camera's first visit, dino_pred,
+     uncertainty_head, uncertainty_loss), each step's share of pixels whose
+     loss_mult is 0, and its batch-norm statistics moved and finite; K1-K3
+     held on its first step's arguments;
   7. the partition engine at full width, through the same two phases: the
      checkpoint of step 4 with its config naming `pallas_binning:
      partition`, asked for 4 renders, and 4 training steps from step 6's
@@ -72,8 +87,10 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      grow_capacity spans, stats and capacity; K1-K3 (and K5, K6) held
      against their plain versions on the last step's arguments;
   9. "cli" and "cli_nerfw", the training CLI end to end, in process
-     (`wildgaussians_torch.train.main`, uncertainty disabled, 200
-     iterations, the JSONL logger and, where installed, tensorboard): a
+     (`wildgaussians_torch.train.main`, the shipped configs as they ship,
+     uncertainty on (at 200 iterations their warm-up keeps loss_mult off
+     and their protected window the head still), 200 iterations, the
+     JSONL logger and, where installed, tensorboard): a
      COLMAP scene ("cli": configs/default.yml, the default protocol) and a
      Photo Tourism capture ("cli_nerfw": configs/phototourism.yml, the
      NeRF-W protocol, which fits an appearance embedding to each scored
@@ -180,6 +197,27 @@ TOL_ROW = 2e-3
 # share of elements outside atol 5e-3 max|g| + rtol 5e-2 (a corner cull or a
 # T stop that flips between the devices moves single Gaussians); metrics
 TOL_GRAD_ATOL, TOL_GRAD_RTOL, TOL_GRAD_FRAC, TOL_METRIC = 5e-3, 5e-2, 1e-3, 1e-3
+# the SSIM map a training step computes, on the card against the CPU on the
+# same inputs, with torch's default TF32 flags in the process: the step pins
+# full f32 (device.full_f32), so the two differ by f32 rounding alone (under
+# cuDNN's TF32 by up to ~0.08: SSIM's variances cancel to within C2 = 9e-4)
+TOL_SSIM = 1e-5
+# the uncertainty model, card vs CPU: DINO features of one render at 336 and
+# loss_mult_for_image within TOL_UNC of their largest value; a step's
+# new batch-norm statistics within TOL_UNC (relative, floor TOL_UNC of the
+# largest); its loss_mult (0 or 1 past the warm-up) and the thresholded
+# loss_mult_for_image may differ on at most TOL_MULT_FRAC of the pixels (a
+# value at the threshold 1 may fall either way)
+TOL_UNC, TOL_MULT_FRAC = 1e-4, 1e-3
+# the check phase's step with the uncertainty model: on from the first
+# step (no warm-up, no protected window), without dropout so that both
+# devices run the same head, whose 1x1 convolution is scaled by
+# CHECK_HEAD_SCALE so that loss_mult is 1 on some pixels and 0 on the others
+# (an initial head gives u ~ 1, below the threshold everywhere)
+CHECK_UNCERTAINTY = dict(uncertainty_mode="dino", uncertainty_dropout=0.0,
+                         uncertainty_warmup_start=0, uncertainty_warmup_iters=0,
+                         uncertainty_protected_iters=0)
+CHECK_HEAD_SCALE = 15.0
 # the k-NN init statistic on the card against the CPU: the same operations,
 # each rounded once (a true division, no fused sums)
 TOL_KNN = 1e-6
@@ -195,6 +233,9 @@ TOL_DECIDE, TOL_NEAR, TOL_STORE_RTOL, TOL_STORE_ATOL = 1e-6, 2, 1e-5, 1e-6
 PROFILE_REQUESTS = 5
 CHECK_SKY = 2000            # sky candidates of the check phase's training set
 TRAIN_STEPS, TRAIN_PROFILE_STEPS = 8, 2
+# the full-width step with the uncertainty model (configs/default.yml's, its
+# dropout 0.5) acting from the first step
+TRAIN_UNCERTAINTY = dict(uncertainty_warmup_start=0, uncertainty_protected_iters=0)
 PARTITION_REQUESTS, PARTITION_STEPS = 4, 4
 # the densify phase's schedule: iteration 2 densifies (and grows the store),
 # 3 resets the opacities, 4 densifies with size pruning, 5 trains on the
@@ -259,21 +300,22 @@ def kernels():
     return [dict(name="blend_fwd", route="cuda", source="wildgaussians_torch/csrc/blend_fwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:376",
                  wrapper=blend.blend_forward, plain=blend.blend_forward_plain,
-                 paths=("serve", "train", "partition_serve", "partition_train", "densify",
-                        "partition_densify", "cli", "cli_nerfw", "raster")),
+                 paths=("serve", "train", "train_uncertainty", "partition_serve",
+                        "partition_train", "densify", "partition_densify", "cli", "cli_nerfw",
+                        "raster")),
             dict(name="blend_bwd", route="cuda", source="wildgaussians_torch/csrc/blend_bwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:493",
                  also_replaces=["wildgaussians_tpu/ops/rasterize_pallas.py:482",
                                 "wildgaussians_tpu/ops/rasterize_pallas.py:501"],
                  wrapper=blend.blend_backward, plain=blend.blend_backward_plain,
-                 paths=("train", "partition_train", "densify", "partition_densify", "cli",
-                        "cli_nerfw", "raster")),
+                 paths=("train", "train_uncertainty", "partition_train", "densify",
+                        "partition_densify", "cli", "cli_nerfw", "raster")),
             dict(name="tier2_merge", route="cuda",
                  source="wildgaussians_torch/csrc/tier2_merge.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:872",
                  wrapper=blend.tier2_merge, plain=blend.tier2_merge_plain,
-                 paths=("train", "partition_train", "densify", "partition_densify", "cli",
-                        "cli_nerfw", "raster")),
+                 paths=("train", "train_uncertainty", "partition_train", "densify",
+                        "partition_densify", "cli", "cli_nerfw", "raster")),
             dict(name="blend_fwd_planar", route="cuda",
                  source="wildgaussians_torch/csrc/blend_fwd_planar.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:1472",
@@ -590,21 +632,27 @@ def full_training_set(serve_model, cams):
     return training_set(cams, images, xyz, colors), xyz
 
 
-def check_train_step(gpu_model, cams, binning="sort"):
+def check_train_step(gpu_model, cams, binning="sort", uncertainty=False):
     """One training step with `pallas_binning: binning` on the card against
     the same step on the CPU from the same state (the CPU model's init
     copied to the card), at active SH degree 3 with anisotropic scales so
     that every parameter gets gradient: every parameter's gradient, read
-    where the step hands it to Adam, and the metrics. Returns the K5/K6
-    calls of the card's step (radix_calls) and the CPU model after its
-    step."""
+    where the step hands it to Adam, and the metrics; and the SSIM map the
+    card's step computed against the CPU's `ssim` on its inputs (TOL_SSIM).
+    With `uncertainty`, the step runs the uncertainty model
+    (CHECK_UNCERTAINTY; the head's gradients join the parameters'), and
+    check_uncertainty holds its parts. Returns the K5/K6 calls of the card's
+    step (radix_calls) and the CPU model after its step."""
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.models import gaussian_store as gs
+    from wildgaussians_torch.models import wildgaussians as trainer
     images = [gpu_model.render(cam)["color"] for cam in cams]
     xyz, colors = surfel_points(CHECK_N, CHECK_W, CHECK_H)
     ds = training_set(cams, images, xyz, colors)
     overrides = dict(uncertainty_mode="disabled", num_sky_gaussians=CHECK_SKY,
                      pallas_binning=binning)
+    if uncertainty:
+        overrides.update(CHECK_UNCERTAINTY)
     cpu = WildGaussians(train_dataset=ds, config_overrides=overrides, device="cpu")
     card = WildGaussians(train_dataset=ds, config_overrides=overrides)
     rng = np.random.default_rng(SEED)
@@ -612,18 +660,34 @@ def check_train_step(gpu_model, cams, binning="sort"):
         for k, sigma in (("scales", 0.3), ("rotations", 0.2)):
             p = cpu.params[k]
             p.add_(torch.as_tensor(rng.normal(0, sigma, p.shape).astype(np.float32)))
+        if uncertainty:
+            cpu.uparams["conv_w"].mul_(CHECK_HEAD_SCALE)
         for k, p in card._trainable().items():
             p.copy_(cpu._trainable()[k].to(p.device))
     for m in (cpu, card):
         m.aux = m.aux._replace(
             active_sh_degree=torch.tensor(3, dtype=torch.int32, device=m.device),
             filter_3D=cpu.aux.filter_3D.to(m.device))
-    grads, metrics, seconds, radix = {}, {}, {}, {}
+    grads, metrics, seconds, radix, ssim_io, loss_mult = {}, {}, {}, {}, {}, {}
+    ssim = trainer.ssim
+
+    def record_ssim(img, gt, *args, **kwargs):
+        out = ssim(img, gt, *args, **kwargs)
+        ssim_io.update(img=img.detach().cpu(), gt=gt.detach().cpu(), out=out.detach().cpu())
+        return out
     for name, m in (("cpu", cpu), ("card", card)):
         def record(_params, g, *_args, name=name, **_kwargs):
             grads[name] = {k: v.detach().to("cpu", copy=True) for k, v in g.items()}
+        if uncertainty:
+            def terms(*args, name=name, orig=m._uncertainty_terms):
+                out = orig(*args)
+                loss_mult[name] = out[1].cpu()
+                return out
+            m._uncertainty_terms = terms
         t0 = time.perf_counter()
         with calls_of(gs, "adam_update", record), \
+                replaced(trainer, "ssim", record_ssim) if name == "card" else \
+                contextlib.nullcontext(), \
                 radix_calls(radix) if name == "card" else contextlib.nullcontext():
             metrics[name] = m.train_iteration(0, camera_id=0)
         seconds[name] = time.perf_counter() - t0
@@ -644,13 +708,82 @@ def check_train_step(gpu_model, cams, binning="sort"):
         check(per_param[k]["share_over_tol"] <= TOL_GRAD_FRAC,
               f"train step: the gradient of {k} differs between the card and the CPU: {per_param[k]}")
     metric_err = {k: abs(m_card[k] - v) / max(abs(v), 1e-12) for k, v in m_cpu.items()}
+    # the step's SSIM map against the CPU's on the same inputs, with the
+    # process's TF32 flags at torch's defaults
+    ssim_err = float((ssim(ssim_io["img"], ssim_io["gt"], size_average=False)
+                      - ssim_io["out"]).abs().max())
     emit({"check": "train step, card vs CPU", "binning": binning, "size": [CHECK_W, CHECK_H],
-          "gaussians": int(m_cpu["num_gaussians"]), "cpu_step_s": seconds["cpu"],
-          "metrics_cpu": m_cpu, "metrics_card": m_card, "metric_rel_err": metric_err,
-          "gradients": per_param})
+          "uncertainty": uncertainty, "gaussians": int(m_cpu["num_gaussians"]),
+          "cpu_step_s": seconds["cpu"], "metrics_cpu": m_cpu, "metrics_card": m_card,
+          "metric_rel_err": metric_err, "gradients": per_param,
+          "ssim_map_max_abs_diff": ssim_err,
+          "tf32_flags": {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                         "float32_matmul_precision": torch.get_float32_matmul_precision()}})
     check(all(e <= TOL_METRIC for e in metric_err.values()),
           f"train step metrics differ between the card and the CPU: {metric_err}")
+    check(ssim_err <= TOL_SSIM, f"the step's SSIM map differs from the CPU's by {ssim_err}")
+    if uncertainty:
+        check_uncertainty(cpu, card, loss_mult, images[0])
     return radix, cpu
+
+
+def check_uncertainty(cpu, card, loss_mult, image):
+    """The uncertainty model of one training step on the card against the
+    CPU's (check_train_step with `uncertainty`): the step's loss_mult and
+    new batch-norm statistics; the DINO features of `image` (a render)
+    letterboxed to 336, also timed on the card beside its FP32 bound; and
+    loss_mult_for_image of camera 0's padded image from the same head and
+    statistics (the CPU model's), with its threshold at 1 (TOL_UNC,
+    TOL_MULT_FRAC)."""
+    from wildgaussians_torch.models.uncertainty import DINO_SIZE, resize_valid
+    lm_diff = float((loss_mult["card"] != loss_mult["cpu"]).float().mean())
+    bn_err = {}
+    for k in ("mean", "var"):
+        want = cpu._uncertainty.bn_state[k]
+        got = card._uncertainty.bn_state[k].cpu()
+        bn_err[k] = float(((got - want).abs() / torch.clamp_min(
+            want.abs(), TOL_UNC * float(want.abs().max()))).max())
+    h, w = image.shape[:2]
+
+    def feats(m):
+        img = torch.as_tensor(image, device=m.device)
+        return m._uncertainty.dino_features(resize_valid(img, DINO_SIZE, DINO_SIZE, h, w,
+                                                         letterbox=True))
+    want = feats(cpu)
+    got = feats(card)
+    dino_err = float((got.cpu() - want).abs().max() / want.abs().max())
+    dino_ms = time_cuda_ms(lambda: feats(card), iters=10)
+    dino = card._uncertainty.dino
+    d, t, blocks = dino.embed_dim, (DINO_SIZE // dino.patch_size) ** 2 + 5, dino.num_heads
+    # the ViT's multiply-adds (2 operations each): per block qkv, q k^T, a v,
+    # proj and the MLP; then the patch embedding
+    dino_ops = 2 * (blocks * (t * d * 3 * d + 2 * t * t * d + t * d * d + 2 * t * d * 4 * d)
+                    + (t - 5) * d * 3 * dino.patch_size ** 2)
+    # loss_mult_for_image from one head and one set of statistics
+    card._uncertainty.bn_state = {k: v.to(card.device)
+                                  for k, v in cpu._uncertainty.bn_state.items()}
+    card_head = {k: v.detach().to(card.device) for k, v in cpu.uparams.items()}
+    aw, ah = cpu._sizes[0]
+    want = cpu._uncertainty.loss_mult_for_image(cpu.uparams, cpu._train_images[0],
+                                                 cpu._pixmask[0], ah, aw)
+    got = card._uncertainty.loss_mult_for_image(card_head, card._train_images[0],
+                                                card._pixmask[0], ah, aw).cpu()
+    lmfi_err = float((got - want).abs().max() / want.abs().max())
+    lmfi_diff = float(((got > 1) != (want > 1)).float().mean())
+    zero = float((loss_mult["cpu"] == 0).float().mean())
+    emit({"check": "uncertainty, card vs CPU", "size": [CHECK_W, CHECK_H],
+          "step_loss_mult_share_differing": lm_diff, "step_loss_mult_share_zero": zero,
+          "bn_state_rel_err": bn_err, "dino_features_rel_err": dino_err,
+          "dino_features_ms": dino_ms, "dino_features_bound_ms": dino_ops / PEAK_FP32 * 1e3,
+          "loss_mult_for_image_rel_err": lmfi_err,
+          "loss_mult_for_image_share_over_1": float((want > 1).float().mean()),
+          "loss_mult_for_image_threshold_share_differing": lmfi_diff})
+    check(lm_diff <= TOL_MULT_FRAC, f"the step's loss_mult differs on {lm_diff} of the pixels")
+    check(0 < zero < 1, f"the step's loss_mult is 0 on {zero} of the pixels")
+    check(max(bn_err.values()) <= TOL_UNC, f"the batch-norm statistics differ: {bn_err}")
+    check(dino_err <= TOL_UNC, f"DINO features differ by {dino_err} of their largest")
+    check(lmfi_err <= TOL_UNC and lmfi_diff <= TOL_MULT_FRAC,
+          f"loss_mult_for_image differs: {lmfi_err}, threshold on {lmfi_diff} of the pixels")
 
 
 def store_on(model, device):
@@ -840,6 +973,8 @@ def phase_check(tmp, errs):
     _radix, cpu_model = check_train_step(gpu, train_cams)
     check_store_ops(cpu_model)
     del cpu_model
+    # the same step with the uncertainty model
+    check_train_step(gpu, train_cams, uncertainty=True)
     # the partition engine: the render path and one training step, card vs
     # CPU, and K5/K6 on the arguments the card's step passed them
     set_binning(ckpt, "partition")
@@ -1062,27 +1197,43 @@ def phase_profile(model, cam, path):
 
 def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
     """The training path `path` at full width ("train": the sort engine,
-    "partition_train": `pallas_binning: partition`; see the module
-    docstring): n_steps steps, the first a warm-up whose kernel arguments
-    are recorded and held right after it (hold_step, outside the timed
-    steps); spans on the steps between, a profiler window on the last
-    profile_steps. Returns each kernel's launches over the steps and the
-    timings of hold_step."""
+    "partition_train": `pallas_binning: partition`, both with uncertainty
+    disabled; "train_uncertainty": the sort engine with configs/default.yml's
+    uncertainty model acting from the first step, TRAIN_UNCERTAINTY; see
+    the module docstring): n_steps steps, the first a warm-up whose kernel
+    arguments are recorded and held right after it (hold_step, outside the
+    timed steps); spans on the steps between, a profiler window on the last
+    profile_steps. With the uncertainty model, also each step's share of
+    pixels whose loss_mult is 0 (read after the steps) and whether its
+    batch-norm statistics moved and stayed finite. Returns each kernel's
+    launches over the steps and the timings of hold_step."""
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.models import gaussian_store as gs
     from wildgaussians_torch.models import wildgaussians as trainer
     from wildgaussians_torch.spans import SpanTimer
     binning = "partition" if path == "partition_train" else "sort"
     ks = [k for k in kernels() if path in k["paths"]]
+    uncertainty = path == "train_uncertainty"
+    overrides = (dict(TRAIN_UNCERTAINTY) if uncertainty
+                 else dict(uncertainty_mode="disabled", pallas_binning=binning))
     ds, xyz = full_training_set(serve_model, cams)
     knn_points = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with calls_of(trainer, "mean_knn_dist2", lambda pts, *_a, **_k: knn_points.append(pts)):
-        model = WildGaussians(train_dataset=ds, config_overrides=dict(uncertainty_mode="disabled",
-                                                                      pallas_binning=binning))
+        model = WildGaussians(train_dataset=ds, config_overrides=overrides)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    loss_mults, bn0 = [], None
+    if uncertainty:
+        check(model.config.uncertainty_mode == "dino", "train_uncertainty's config")
+        bn0 = {k: v.clone() for k, v in model._uncertainty.bn_state.items()}
+
+        def terms(*args, orig=model._uncertainty_terms):
+            out = orig(*args)
+            loss_mults.append(out[1])
+            return out
+        model._uncertainty_terms = terms
     if path == "train":
         check(len(knn_points) == 1 and knn_points[0].device.type == model.device.type,
               "the set-up's k-NN call")
@@ -1125,7 +1276,8 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
         per_step_launches.append({k["name"]: k["wrapper"].launches - before[k["name"]]
                                   for k in ks})
         steps.append({"step": step, "ms": ms, **{key: metrics[key] for key in (
-            "loss", "psnr", "num_rendered", "overflow", "max_tiles", "num_gaussians")}})
+            "loss", "psnr", "num_rendered", "overflow", "max_tiles", "num_gaussians",
+            "uncertainty_loss", "beta") if key in metrics}})
         check(np.isfinite(metrics["loss"]), f"{path}: loss at step {step} is {metrics['loss']}")
         if step < n_plain:
             fold()
@@ -1162,6 +1314,19 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
         else:
             check(v > 0.0, f"{k} got no gradient in {n_plain} steps")
     n_span = n_plain - 1
+    extra = {}
+    if uncertainty:
+        bn = model._uncertainty.bn_state
+        moved = {k: float((bn[k] - bn0[k]).abs().max()) for k in bn}
+        check(all(v > 0 for v in moved.values()) and all(bool(torch.isfinite(v).all())
+                                                          for v in bn.values()),
+              f"{path}: the batch-norm statistics did not move or are not finite: {moved}")
+        # over the warm-up (uncertainty_warmup_iters) a pixel that the model
+        # down-weights gets 1 - iteration / warm-up, not 0
+        extra = {"loss_mult_share_zero": [float((lm == 0).float().mean()) for lm in loss_mults],
+                 "loss_mult_share_below_1": [float((lm < 1).float().mean()) for lm in loss_mults],
+                 "bn_state_max_moved": moved, "uncertainty_dropout": model.config.uncertainty_dropout}
+        check(len(loss_mults) == n_steps, f"{path}: {len(loss_mults)} loss_mult maps")
     emit({"phase": path, "binning": binning, "points": int(len(xyz)),
           "capacity": int(model.params["xyz"].shape[0]), "size": [FULL_W, FULL_H],
           "setup_s": setup_s, "steps": steps, "warmup_ms": steps[0]["ms"],
@@ -1171,7 +1336,7 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
           **({"engine_sizes": engine_sizes(model)._asdict()} if stages_of else {}),
           "stage_device_ms": {name: ms / n_span for name, (ms, _c) in stages.items()},
           "stage_spans_per_step": {name: c / n_span for name, (_ms, c) in stages.items()},
-          **device_window(prof, traced_us, profile_steps, "step")})
+          **extra, **device_window(prof, traced_us, profile_steps, "step")})
     return launches, timings
 
 
@@ -1444,7 +1609,8 @@ def phase_cli(serve_model, kind, errs):
     on a Photo Tourism capture (four image sizes) and scores it under the
     NeRF-W protocol, which fits an appearance embedding to each scored
     image's left half (CLI_NERFW_FIT_ITERS Adam iterations of a one-pass
-    render and its backward). Both with uncertainty disabled, CLI_ITERS
+    render and its backward; under "-scaled", with the uncertainty model's
+    mask). Both with the shipped configs' uncertainty model, CLI_ITERS
     iterations and the JSONL (and, where installed, the tensorboard)
     logger. Fatal: a non-zero exit, train/psnr not rising between its two
     windows, a non-finite result, a missing checkpoint file, a ply whose
@@ -1459,6 +1625,7 @@ def phase_cli(serve_model, kind, errs):
     import importlib.util
     from pathlib import Path
     from wildgaussians_torch import train as ttrain
+    from wildgaussians_torch.models.uncertainty import UncertaintyModel
     from wildgaussians_torch.models.wildgaussians import WildGaussians
     from wildgaussians_torch.spans import SpanTimer
     ks = [k for k in kernels() if kind in k["paths"]]
@@ -1470,9 +1637,8 @@ def phase_cli(serve_model, kind, errs):
         write_s = time.perf_counter() - t0
         out = root / "out"
         logger = "both" if importlib.util.find_spec("tensorboard") else "jsonl"
-        argv = ["--data", str(scene), "--output", str(out), "--set", "uncertainty_mode=disabled",
-                "--set", f"iterations={CLI_ITERS}", "--eval-few-iters",
-                CLI_EVAL_FEW[kind], "--logger", logger]
+        argv = ["--data", str(scene), "--output", str(out), "--set", f"iterations={CLI_ITERS}",
+                "--eval-few-iters", CLI_EVAL_FEW[kind], "--logger", logger]
         if kind == "cli_nerfw":
             argv += ["--dataset-type", "phototourism", "--set",
                      f"appearance_embedding_optim_iters={CLI_NERFW_FIT_ITERS}"]
@@ -1510,7 +1676,12 @@ def phase_cli(serve_model, kind, errs):
                 return orig_render(self, camera_, **kwargs)
         orig_render = WildGaussians.render
 
+        # the share of canvas pixels the "-scaled" fits keep (loss_mult > 1)
+        fit_mask_share = []
         with contextlib.ExitStack() as stack:
+            stack.enter_context(results_of(
+                UncertaintyModel, "loss_mult_for_image",
+                lambda lm: fit_mask_share.append(float((lm > 1).float().mean()))))
             stack.enter_context(replaced(WildGaussians, "train_iteration", train_iteration))
             stack.enter_context(replaced(WildGaussians, "optimize_embedding", optimize_embedding))
             stack.enter_context(replaced(WildGaussians, "render", render))
@@ -1565,6 +1736,10 @@ def phase_cli(serve_model, kind, errs):
                                  "ms_per_iteration": fit_s * 1e3 / max(iters, 1),
                                  "each": [{k: v for k, v in f.items() if k != "embedding"}
                                           for f in fits]},
+          # the uncertainty model's spans: (s, count)
+          "uncertainty_spans_s": {k: spans[k] for k in ("dino_gt", "dino_pred", "uncertainty_head",
+                                                        "uncertainty_loss") if k in spans},
+          "scaled_fit_mask_share_over_1": fit_mask_share,
           "peak_mem_gib": peak_gib, "launches": launches, **shown})
     return launches
 
@@ -2081,10 +2256,6 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.ops import _build
-    # f32 matmuls and convolutions in full f32 (the plain versions, the
-    # appearance MLP, SSIM)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
     print(card, flush=True)
@@ -2117,6 +2288,10 @@ def main():
         launches["train"], k2k3 = phase_train(serve_model, cams, "train", TRAIN_STEPS,
                                               TRAIN_PROFILE_STEPS, errs)
         timings.update(k2k3)
+        torch.cuda.empty_cache()
+        # the same path with the uncertainty model acting from the first step
+        launches["train_uncertainty"], _k2k3 = phase_train(
+            serve_model, cams, "train_uncertainty", TRAIN_STEPS, TRAIN_PROFILE_STEPS, errs)
         torch.cuda.empty_cache()
 
         # the partition engine at full width, after the sort engine's paths:

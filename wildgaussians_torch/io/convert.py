@@ -5,11 +5,14 @@ A checkpoint is a directory with `config.yaml` and `chkpnt-<step>.npz`. The
 npz holds flat keys: `params/<name>` and `params/appearance_mlp/{w,b}{0,1,2}`
 for the parameter tree, `aux/<field>` for the store's buffers,
 `adam/mu/<param>`, `adam/nu/<param>` and `adam/step` for Adam,
-`spatial_lr_scale` and, with an uncertainty model, `params/uncertainty/...`
-and `uncertainty_bn/...`. `params_from_numpy` turns the arrays a render
+`spatial_lr_scale` and, with an uncertainty model, its head
+`params/uncertainty/{conv_w,conv_b,bn_scale,bn_bias}` (with Adam's
+`adam/{mu,nu}/uncertainty/...`) and its running batch-norm statistics
+`uncertainty_bn/{mean,var}`. `params_from_numpy` turns the arrays a render
 needs into the port's tensors and modules; `train_state_from_numpy` adds
-Adam and the spatial learning-rate scale for resuming training;
-`state_to_numpy` writes the port's state back in the same layout.
+Adam, the spatial learning-rate scale and the uncertainty model's arrays
+(`uncertainty_from_numpy`) for resuming training; `state_to_numpy` writes
+the port's state back in the same layout.
 
 Checked against the config: every `params/*` shape must agree with it (SH
 width with `sh_degree`, the MLP's input width with the appearance fields, and
@@ -23,6 +26,7 @@ import torch
 
 from ..config import Config, config_to_yaml
 from ..models.appearance import HIDDEN, AppearanceMLP, mlp_input_dim
+from ..models.dinov2 import ARCHS
 from ..models.gaussian_store import AdamState, AuxState
 
 # Read and ignored by the serving path: the optimizer state, the training-only
@@ -44,6 +48,8 @@ class TrainState(NamedTuple):
     model: ModelState
     adam: AdamState                   # moments keyed as `trainable_tensors`
     spatial_lr_scale: float
+    uncertainty: Optional[Dict[str, torch.Tensor]] = None      # the head, or None
+    uncertainty_bn: Optional[Dict[str, torch.Tensor]] = None   # running BN statistics
 
 
 def _expected_param_shapes(config: Config, capacity: int, num_images: Optional[int]):
@@ -66,14 +72,43 @@ def _expected_param_shapes(config: Config, capacity: int, num_images: Optional[i
     return shapes
 
 
-def trainable_tensors(params: Dict[str, torch.Tensor],
-                      mlp: Optional[AppearanceMLP]) -> Dict[str, torch.Tensor]:
+def trainable_tensors(params: Dict[str, torch.Tensor], mlp: Optional[AppearanceMLP],
+                      uncertainty: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
     """Every trained tensor under its store key (see models/gaussian_store.py):
-    the parameters, then the MLP's `appearance_mlp/{w,b}{i}`."""
+    the parameters, then the MLP's `appearance_mlp/{w,b}{i}`, then the
+    uncertainty head's `uncertainty/<name>`."""
     out = dict(params)
     if mlp is not None:
         out.update(mlp.named_tensors())
+    if uncertainty is not None:
+        out.update({f"uncertainty/{k}": v for k, v in uncertainty.items()})
     return out
+
+
+def uncertainty_from_numpy(flat: Mapping[str, np.ndarray], config: Config, device="cpu"):
+    """(head, running batch-norm statistics or None) of the uncertainty
+    model from JAX-format flat arrays, or None with `uncertainty_mode:
+    disabled`. Raises ValueError naming a missing or mis-shaped head key."""
+    if config.uncertainty_mode == "disabled":
+        return None
+    d = ARCHS[config.uncertainty_backbone]["embed_dim"]
+    shapes = {"conv_w": (d, 1), "conv_b": (1,), "bn_scale": (d,), "bn_bias": (d,)}
+    head = {}
+    for name, shape in shapes.items():
+        key = f"params/uncertainty/{name}"
+        if key not in flat:
+            raise ValueError(f"checkpoint is missing {key!r} (uncertainty_mode "
+                             f"{config.uncertainty_mode!r} trains the uncertainty head)")
+        if tuple(np.shape(flat[key])) != shape:
+            raise ValueError(f"checkpoint key {key!r} has shape {np.shape(flat[key])}, the "
+                             f"{config.uncertainty_backbone} head {shape}")
+        head[name] = torch.as_tensor(np.array(flat[key], np.float32), device=device)
+    bn = None
+    if "uncertainty_bn/mean" in flat:
+        bn = {k: torch.as_tensor(np.array(flat[f"uncertainty_bn/{k}"], np.float32), device=device)
+              for k in ("mean", "var")}
+    return head, bn
 
 
 def _to_jax_layout(key: str, x: np.ndarray) -> np.ndarray:
@@ -137,7 +172,8 @@ def train_state_from_numpy(flat: Mapping[str, np.ndarray], config: Config,
     learning-rate scale, as the JAX package's `_load_state` reads them.
     Raises ValueError naming a missing or mis-shaped Adam key."""
     model = params_from_numpy(flat, config, device)
-    names = trainable_tensors(model.params, model.mlp)
+    head, bn = uncertainty_from_numpy(flat, config, device) or (None, None)
+    names = trainable_tensors(model.params, model.mlp, head)
     moments = {}
     for which in ("mu", "nu"):
         moments[which] = {}
@@ -157,19 +193,22 @@ def train_state_from_numpy(flat: Mapping[str, np.ndarray], config: Config,
     adam = AdamState(moments["mu"], moments["nu"],
                      torch.as_tensor(np.asarray(flat["adam/step"]), dtype=torch.int32,
                                      device=device))
-    return TrainState(model, adam, float(flat["spatial_lr_scale"]))
+    return TrainState(model, adam, float(flat["spatial_lr_scale"]), head, bn)
 
 
 def state_to_numpy(params: Dict[str, torch.Tensor], mlp: Optional[AppearanceMLP],
-                   aux: AuxState, adam: AdamState, spatial_lr_scale: float
+                   aux: AuxState, adam: AdamState, spatial_lr_scale: float,
+                   uncertainty: Optional[Dict[str, torch.Tensor]] = None,
+                   uncertainty_bn: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Dict[str, np.ndarray]:
     """The port's training state as the JAX package's `_state_dict` writes
-    it: `params/...` (MLP weights [in, out]), `adam/mu/...`, `adam/nu/...`,
-    `adam/step`, every `aux/...` field and `spatial_lr_scale`."""
+    it: `params/...` (MLP weights [in, out], the uncertainty head under
+    `params/uncertainty/`), `adam/mu/...`, `adam/nu/...`, `adam/step`,
+    every `aux/...` field, `spatial_lr_scale` and `uncertainty_bn/...`."""
     def host(x):
         return x.detach().cpu().numpy()
     flat = {}
-    for name, p in trainable_tensors(params, mlp).items():
+    for name, p in trainable_tensors(params, mlp, uncertainty).items():
         flat[f"params/{name}"] = _to_jax_layout(name, host(p))
     for which, moments in (("mu", adam.mu), ("nu", adam.nu)):
         for name, m in moments.items():
@@ -178,6 +217,8 @@ def state_to_numpy(params: Dict[str, torch.Tensor], mlp: Optional[AppearanceMLP]
     for field in AuxState._fields:
         flat[f"aux/{field}"] = host(getattr(aux, field))
     flat["spatial_lr_scale"] = np.asarray(spatial_lr_scale)
+    for k, v in (uncertainty_bn or {}).items():
+        flat[f"uncertainty_bn/{k}"] = host(v)
     return flat
 
 

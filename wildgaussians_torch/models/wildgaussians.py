@@ -2,18 +2,20 @@
 
 Counterpart of `wildgaussians_tpu/models/wildgaussians.py`: construction
 (`_setup_train`, checkpoint loading), the single-device training step
-(`_build_train_step`'s loss and step, without the uncertainty model),
-`train_iteration` with the host schedule after the step (densify/prune,
-capacity growth, opacity reset), `render`, `get_embedding`,
-`get_train_embedding`, `optimize_embedding`, the Method protocol's
-`install`, `get_method_info` and `get_info`, and `save` (the checkpoint and
-`point_cloud.ply`). Checkpoints use the JAX package's format (see
-io/convert.py), both ways.
+(`_build_train_step`'s loss and step, with the uncertainty model of
+`models/uncertainty.py` when `uncertainty_mode` is not "disabled": its loss
+joins the step's, its `loss_mult` weights the L1 and DSSIM terms, its head
+trains under Adam), `train_iteration` with the host schedule after the step
+(densify/prune, capacity growth, opacity reset, the protected window after
+a reset), `render`, `get_embedding`, `get_train_embedding`,
+`optimize_embedding` (with the uncertainty mask in its "-scaled" modes),
+the Method protocol's `install`, `get_method_info` and `get_info`, and
+`save` (the checkpoint and `point_cloud.ply`). Checkpoints use the JAX
+package's format (see io/convert.py), both ways.
 
-Not ported yet (ROADMAP.md, Queue 1): the uncertainty model (training with
-an `uncertainty_mode` other than "disabled" raises at construction;
-rendering never uses it, and `optimize_embedding` raises where its loss
-would).
+The entry points (`render_pkg` and so `render`, `train_iteration`,
+`optimize_embedding`) compute in full f32 whatever the process's TF32
+flags (`device.full_f32`), as the JAX package's `Precision.HIGHEST` does.
 """
 import hashlib
 import logging
@@ -27,9 +29,9 @@ import torch
 
 from ..cameras import get_cameras_extent
 from ..config import Config, config_from_yaml_str, config_to_yaml, load_config_yaml, merge_config
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..io.convert import (params_from_numpy, state_to_numpy, train_state_from_numpy,
-                          trainable_tensors)
+                          trainable_tensors, uncertainty_from_numpy)
 from ..io.ply import save_ply
 from ..ops.blend import check_binning
 from ..ops.knn import mean_knn_dist2
@@ -42,6 +44,8 @@ from . import gaussian_store as gs
 from .appearance import AppearanceMLP
 from .renderer import RenderPkg, render_internal
 from .sky import get_sky_points
+from .uncertainty import (DINO_SIZE, UncertaintyModel, content_mask, resize_to_valid,
+                          resize_valid)
 
 logger = logging.getLogger(__name__)
 
@@ -61,15 +65,6 @@ def _pad_to(img: np.ndarray, h: int, w: int) -> np.ndarray:
 def scale_grads(values: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The forward value unchanged, the gradient scaled by `scale`."""
     return values * scale + values.detach() * (1 - scale)
-
-
-def _no_uncertainty(config: Config):
-    """Raise for a configuration whose training needs the uncertainty model."""
-    if config.uncertainty_mode != "disabled":
-        raise NotImplementedError(
-            f"uncertainty_mode {config.uncertainty_mode!r}: the uncertainty model "
-            "is not ported yet (ROADMAP.md, Queue 1, uncertainty); train with "
-            "uncertainty_mode: disabled")
 
 
 def _check_supported(config: Config):
@@ -128,6 +123,8 @@ class WildGaussians:
             raise NotImplementedError("2D appearance models are not supported")
         if self.config.use_background_model:
             raise NotImplementedError("Background model is not supported")
+        if self.config.uncertainty_preserve_sky:
+            raise NotImplementedError("Flag uncertainty_preserve_sky is not supported")
 
         # the JAX package seeds Python's global RNG with 0 for its camera
         # shuffle; the port keeps a generator of its own with that seed
@@ -140,13 +137,24 @@ class WildGaussians:
         self.cameras_extent: Optional[float] = None
         self._overflow_streak = 0
         self.mlp: Optional[AppearanceMLP] = None
+        # the uncertainty model and its head's parameters (training; a
+        # checkpoint loaded to serve builds them at its first "-scaled" fit)
+        self._uncertainty: Optional[UncertaintyModel] = None
+        self.uparams: Optional[Dict[str, torch.Tensor]] = None
+        self._uncertainty_arrays = None
+        self._gt336_cache = {}
 
         if train_dataset is not None:
-            _no_uncertainty(self.config)
+            if self.config.uncertainty_mode != "disabled":
+                self._uncertainty = UncertaintyModel(self.config, self.device)
             self._setup_train(train_dataset, load_state)
         elif load_state is not None:
             self.params, self.mlp, self.aux = params_from_numpy(load_state, self.config,
                                                                 self.device)
+            if self.config.uncertainty_mode != "disabled":
+                self._uncertainty_arrays = {
+                    k: v for k, v in load_state.items()
+                    if k.startswith(("params/uncertainty/", "uncertainty_bn/"))}
         else:
             raise ValueError("pass a checkpoint, a train_dataset, or both")
 
@@ -212,18 +220,24 @@ class WildGaussians:
                 len(self.train_cameras), knn_d2, self._np_rng, self.device)
             if config.appearance_enabled:
                 self.mlp = AppearanceMLP.from_config(config, self._np_rng).to(self.device)
+            if self._uncertainty is not None:
+                # drawn after the MLP, as the JAX package draws it
+                self.uparams = self._uncertainty.init_params(self._np_rng)
             self.adam = gs.init_adam(self._trainable())
             self.spatial_lr_scale = float(self.cameras_extent)
         else:
             state = train_state_from_numpy(load_state, config, self.device)
             self.params, self.mlp, self.aux = state.model
             self.adam, self.spatial_lr_scale = state.adam, state.spatial_lr_scale
+            self.uparams = state.uncertainty
+            if state.uncertainty_bn is not None:
+                self._uncertainty.bn_state = state.uncertainty_bn
         for t in self._trainable().values():
             t.requires_grad_(True)
         self._refresh_filter()
 
     def _trainable(self) -> Dict[str, torch.Tensor]:
-        return trainable_tensors(self.params, self.mlp)
+        return trainable_tensors(self.params, self.mlp, self.uparams)
 
     def _refresh_filter(self):
         filt = gs.compute_3d_filter(self.params["xyz"].detach(), self.aux.alive,
@@ -232,21 +246,36 @@ class WildGaussians:
 
     # ------------------------------------------------------------- train step
 
-    def _loss(self, pkg: RenderPkg, gt, pixmask, mask):
+    def _loss(self, pkg: RenderPkg, camera_id: int, iteration: int):
         """L1 on the toned image plus lambda DSSIM on the raw image over the
-        pixel mask (occluder masks scale the gradients), and the metrics."""
-        lambda_dssim = self.config.lambda_dssim
+        pixel mask (occluder masks scale the gradients), each pixel weighted
+        by the uncertainty model's `loss_mult`, plus its loss; the metrics;
+        the uncertainty model's new batch-norm statistics (or None)."""
+        config = self.config
+        lambda_dssim = config.lambda_dssim
+        gt = self._train_images[camera_id]
+        pixmask = self._pixmask[camera_id]
+        mask = self._train_masks[camera_id] if self._train_masks is not None else None
         image_toned = pkg.render * pixmask[..., None]
         image = pkg.raw_render * pixmask[..., None]
         if mask is not None:
             image = scale_grads(image, mask[..., None])
             image_toned = scale_grads(image_toned, mask[..., None])
+        uloss, weight, umetrics, new_bn = 0.0, pixmask, {}, None
+        if self._uncertainty is not None:
+            uloss, loss_mult, umetrics, new_bn = self._uncertainty_terms(image_toned, camera_id,
+                                                                         iteration)
+            if config.uncertainty_scale_grad:
+                image = scale_grads(image, loss_mult[..., None])
+                image_toned = scale_grads(image_toned, loss_mult[..., None])
+            else:
+                weight = loss_mult * pixmask
         npix = torch.sum(pixmask)
         l1_map = torch.abs(image_toned - gt)
         ssim_map = ssim(image, gt, size_average=False)
-        l1_w = torch.sum(l1_map * pixmask[..., None]) / (npix * 3)
-        dssim_w = torch.sum((1.0 - ssim_map) * pixmask) / npix
-        loss = (1.0 - lambda_dssim) * l1_w + lambda_dssim * dssim_w
+        l1_w = torch.sum(l1_map * weight[..., None]) / (npix * 3)
+        dssim_w = torch.sum((1.0 - ssim_map) * weight) / npix
+        loss = (1.0 - lambda_dssim) * l1_w + lambda_dssim * dssim_w + uloss
         with torch.no_grad():
             mse = torch.sum(torch.square(image_toned - gt) * pixmask[..., None]) / (npix * 3)
             metrics = {
@@ -255,6 +284,7 @@ class WildGaussians:
                 "ssim": torch.sum(ssim_map * pixmask) / npix,
                 "mse": mse,
                 "psnr": -10.0 * torch.log10(mse),
+                **umetrics,
             }
             if mask is not None:
                 msum = torch.clamp_min(torch.sum(mask * pixmask), 1.0)
@@ -267,7 +297,65 @@ class WildGaussians:
                     "psnr_masked": -10.0 * torch.log10(mse_masked),
                     "l1_loss_masked": torch.sum(l1_map * (mask * pixmask)[..., None]) / (msum * 3),
                 })
-        return loss, metrics
+        return loss, metrics, new_bn
+
+    def _uncertainty_terms(self, image_toned: torch.Tensor, camera_id: int, iteration: int):
+        """The uncertainty model's part of a step: (its loss, detached while
+        protected after an opacity reset; the per-pixel loss multiplier on
+        the canvas, without gradient; its metrics; the new batch-norm
+        statistics). The multiplier is the model's `loss_mult` mapped back
+        to the canvas, thresholded at 1 and blended in over the warm-up
+        (`uncertainty_warmup_start`, `uncertainty_warmup_iters`), optionally
+        centred (`uncertainty_center_mult`)."""
+        config = self.config
+        unc = self._uncertainty
+        pw, ph = self._pad_wh[camera_id]
+        aw, ah = self._sizes[camera_id]
+        pixmask = self._pixmask[camera_id]
+        lb = config.uncertainty_dino_letterbox
+        gt336, mask336, pmask = self._gt336_cached(camera_id)
+        feats_gt = unc.gt_features(camera_id, gt336)
+        pred336 = resize_valid(image_toned.detach(), DINO_SIZE, DINO_SIZE, ah, aw, letterbox=lb)
+        uloss, metrics, lm336, new_bn = unc.compute_loss(
+            self.uparams, unc.bn_state, feats_gt, gt336, pred336, mask336, train=True,
+            generator=self._generator, patch_mask=pmask)
+        with torch.no_grad():
+            lm = resize_to_valid(lm336, ph, pw, ah, aw, letterbox=lb) * pixmask
+            lm = (lm > 1.0).to(torch.float32)
+            ws, wi = config.uncertainty_warmup_start, config.uncertainty_warmup_iters
+            if iteration < ws:
+                pfrac = 0.0
+            elif wi > 0:
+                pfrac = float(np.clip(np.float32(iteration - ws) / np.float32(wi), 0, 1))
+            else:
+                pfrac = 1.0
+            loss_mult = 1.0 + pfrac * (lm - 1.0)
+            if config.uncertainty_center_mult:
+                mean_lm = torch.sum(loss_mult * pixmask) / torch.clamp_min(torch.sum(pixmask), 1.0)
+                loss_mult = torch.clamp(loss_mult - (mean_lm - 1), 0, 2)
+        # the head learns nothing for `uncertainty_protected_iters` after
+        # each opacity reset (the host computes the window)
+        last_densify = min(iteration, config.densify_until_iter - 1)
+        last_reset = (last_densify // config.opacity_reset_interval) * config.opacity_reset_interval
+        if iteration < last_reset + config.uncertainty_protected_iters:
+            uloss = uloss.detach()
+        return uloss, loss_mult, metrics, new_bn
+
+    def _gt336_cached(self, camera_id: int):
+        """A camera's ground truth letterboxed into the DINO_SIZE canvas and
+        its pixel- and patch-level content masks, made on the camera's first
+        visit and kept on the device."""
+        cache = self._gt336_cache
+        if camera_id not in cache:
+            lb = self.config.uncertainty_dino_letterbox
+            aw, ah = self._sizes[camera_id]
+            cache[camera_id] = (
+                resize_valid(self._train_images[camera_id], DINO_SIZE, DINO_SIZE, ah, aw,
+                             letterbox=lb),
+                content_mask(DINO_SIZE, DINO_SIZE, ah, aw, lb, device=self.device),
+                content_mask(DINO_SIZE, DINO_SIZE, ah, aw, lb,
+                             granularity=self._uncertainty.dino.patch_size, device=self.device))
+        return cache[camera_id]
 
     def _train_step(self, camera_id: int, iteration: int, densify_enabled: bool
                     ) -> Dict[str, torch.Tensor]:
@@ -277,9 +365,6 @@ class WildGaussians:
         config = self.config
         pw, ph = self._pad_wh[camera_id]
         aw, ah = self._sizes[camera_id]
-        gt = self._train_images[camera_id]
-        pixmask = self._pixmask[camera_id]
-        mask = self._train_masks[camera_id] if self._train_masks is not None else None
         n = self.params["xyz"].shape[0]
         m2d_hook = torch.zeros((n, 2), device=self.device, requires_grad=True)
         abs_hook = torch.zeros((n, 2), device=self.device, requires_grad=True)
@@ -293,7 +378,7 @@ class WildGaussians:
                 embedding=embedding, kernel_size=config.kernel_size,
                 mean2d_hook=m2d_hook, absgrad_hook=abs_hook, actual_size=(aw, ah))
         with span("loss"):
-            loss, metrics = self._loss(pkg, gt, pixmask, mask)
+            loss, metrics, new_bn = self._loss(pkg, camera_id, iteration)
         trainable = self._trainable()
         with span("backward"):
             grads = torch.autograd.grad(loss, [*trainable.values(), m2d_hook, abs_hook],
@@ -322,6 +407,8 @@ class WildGaussians:
                         wd = {"appearance_embeddings": config.appearance_embedding_regularization}
                     self.adam = gs.adam_update(trainable, param_grads, self.adam, lrs,
                                                weight_decay=wd)
+            if new_bn is not None:
+                self._uncertainty.bn_state = new_bn
             metrics["num_rendered"] = pkg.num_rendered
             metrics["overflow"] = pkg.overflow
             metrics["max_tiles"] = pkg.max_tiles
@@ -389,6 +476,7 @@ class WildGaussians:
             loaded_step=self._loaded_step,
         )
 
+    @full_f32()
     def train_iteration(self, step: int, camera_id: Optional[int] = None) -> Dict[str, float]:
         """One training iteration (`step` is 0-indexed). Picks the camera
         from a shuffled stack (the JAX package's sequence) unless
@@ -460,6 +548,7 @@ class WildGaussians:
         return e.cpu().numpy() if e is not None else None
 
     @torch.no_grad()
+    @full_f32()
     def render_pkg(self, camera: Cameras, *, options: Optional[Dict] = None) -> RenderPkg:
         """`render`'s device-side result on the padded canvas, before the
         clip and crop: the image tensors plus the render's counters and the
@@ -514,9 +603,15 @@ class WildGaussians:
         gt = dev(_pad_to(convert_image_dtype(dataset["images"][0], np.float32)[..., :3], ph, pw))
         pixmask = dev(_pad_to(np.ones((h, w, 1), np.float32), ph, pw)[..., 0])
         loss_mult = None
+        if self.config.appearance_optim_type.endswith("-scaled"):
+            unc = self._uncertainty_for_fits()
+            if unc is not None:
+                lm = unc.loss_mult_for_image(self.uparams, gt, pixmask, h, w)
+                loss_mult = (lm > 1.0).to(torch.float32)
         if dataset.get("masks") is not None:
-            m = convert_image_dtype(dataset["masks"][0], np.float32)
-            loss_mult = dev(_pad_to(m[..., None], ph, pw)[..., 0])
+            m = dev(_pad_to(convert_image_dtype(dataset["masks"][0], np.float32)[..., None],
+                            ph, pw)[..., 0])
+            loss_mult = m if loss_mult is None else loss_mult * m
         return (dev(np.asarray(camera.poses, np.float32)),
                 dev(np.asarray(camera.intrinsics, np.float32)), (float(w), float(h)),
                 gt, pixmask, loss_mult)
@@ -549,6 +644,20 @@ class WildGaussians:
             raise ValueError(f"Unknown appearance optimization type {config.appearance_optim_type}")
         return loss, mse
 
+    def _uncertainty_for_fits(self) -> Optional[UncertaintyModel]:
+        """The uncertainty model for the "-scaled" fits, or None with
+        `uncertainty_mode: disabled`; a model loaded from a checkpoint alone
+        builds it (and its head, from the checkpoint) here, once."""
+        if self._uncertainty is None and self._uncertainty_arrays is not None:
+            self.uparams, bn = uncertainty_from_numpy(self._uncertainty_arrays, self.config,
+                                                      self.device)
+            self._uncertainty = UncertaintyModel(self.config, self.device)
+            if bn is not None:
+                self._uncertainty.bn_state = bn
+            self._uncertainty_arrays = None
+        return self._uncertainty
+
+    @full_f32()
     def optimize_embedding(self, dataset: Dataset, *,
                            embedding: Optional[np.ndarray] = None) -> OptimizeEmbeddingOutput:
         """Fit an appearance embedding to the one image of `dataset` with the
@@ -561,9 +670,6 @@ class WildGaussians:
         mse and psnr."""
         if not self.config.appearance_enabled:
             raise NotImplementedError("Trying to optimize embedding with appearance_enabled=False")
-        if self.config.appearance_optim_type.endswith("-scaled"):
-            # the uncertainty model's loss multiplier takes part in the loss
-            _no_uncertainty(self.config)
         inputs = self._embed_opt_inputs(dataset)
         emb = (torch.as_tensor(np.asarray(embedding, np.float32), device=self.device)
                if embedding is not None else self.get_embedding(None)).clone()
@@ -604,7 +710,9 @@ class WildGaussians:
     def state_dict(self) -> Dict[str, np.ndarray]:
         """The training state as flat numpy arrays under the JAX package's
         `_state_dict` keys (what `chkpnt-<step>.npz` holds)."""
-        return state_to_numpy(self.params, self.mlp, self.aux, self.adam, self.spatial_lr_scale)
+        return state_to_numpy(self.params, self.mlp, self.aux, self.adam, self.spatial_lr_scale,
+                              self.uparams,
+                              self._uncertainty.bn_state if self._uncertainty else None)
 
     def save(self, path: str):
         """Write `point_cloud.ply` (the live Gaussians: xyz, features_dc,
