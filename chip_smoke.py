@@ -14,7 +14,8 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      shared-memory report;
   3. check, on a 20k-Gaussian surfel scene at 512x384: each kernel against
      its plain PyTorch version on the card (K1 and K2 for 1-3 color passes,
-     K3), the whole render path on the card against the same path on the
+     K3; K1's per-tile saturation vote bit for bit wherever K1 is held), the
+     whole render path on the card against the same path on the
      CPU, and one training step on the card against the same step on the
      CPU from the same init (every parameter's gradient, the metrics, and
      the SSIM map the card's step computed against the CPU's on its inputs,
@@ -33,7 +34,17 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      336 (timed on the card) and loss_mult_for_image, card vs CPU;
      then the same render path and training step with `pallas_binning:
      partition`, and K5 and K6 against their plain versions (bit for bit)
-     on every call the card's partition step made;
+     on every call the card's partition step made; then the saturation
+     cull on an occluded scene (tests/test_satcull.py's, scaled up: 5 wall
+     layers of 128x128 Gaussians in front of 4,000 far points, opacity
+     0.9): the per-tile
+     saturation depths against the plain walk's (bit for bit) and the
+     CPU's binning and blend from the same preprocess arrays, the pooled
+     map culls cells and moves the image by at most 5e-3, a +inf map
+     changes nothing, bit for bit; one training step under a map of camera
+     0, card vs CPU (and the maps the steps write back); the render path
+     and one training step with `pallas_binning: gather` and with
+     `rasterizer_backend: tiled`, card vs CPU;
   4. the serving path at full width: a 1.5M-Gaussian, SH-degree-3,
      appearance-on checkpoint in the JAX package's format, loaded through
      WildGaussians and asked for 8 renders at 1280x720 from 4 poses (one with
@@ -78,6 +89,29 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      the same function. K5 runs 15 times per request and per step, K6 15
      times per step. The partition step's K2 also writes the two per-pass
      abs rows (each summed over the passes);
+  7b. "train_satcull": step 6's set-up with `saturation_culling: true`, 8
+     steps over the 4 cameras (each visited twice; a first visit runs
+     under a +inf map): as step 6, plus each step's binned entries against
+     its camera's first visit, each camera's share of finite supertiles,
+     and, from the parameters after the steps, one camera's image without a
+     map against the same with its last visit's map and with a map of its
+     own exit depths (measured under the trainer's big-Gaussian pool, which
+     the cull also reallocates; held within 5e-3 with a pool of every
+     Gaussian, fatal); whether the cull fired is reported, not required. "gather_serve" and "gather_train": the
+     gather engine (`pallas_binning: gather`) through phases 4 and 6, 4
+     requests and 4 steps (K1 and K2 held on the first's arguments; the
+     engine runs no K3). "tiled" and "tiled_train": the tiled backend
+     (`rasterizer_backend: tiled`, plain torch, no kernel) through the same
+     two phases, 2 requests and 2 steps (none traced: a tiled request
+     issues ~58k launches, a step ~330k). "trajectory": 30 frames between
+     the 4 serving poses whose appearance blends training embeddings 1 and
+     5 (`trajectory_get_cameras`, `trajectory_get_embeddings`),
+     `render_frames` to a .tar.gz: frames per second, each frame within
+     1/255 of the model's render of its camera (K1 held on the first).
+     "reference_import": the serving checkpoint written in the reference's
+     layout (`chkpnt-30000.pth`), imported (`io/reference_import.py`),
+     loaded and asked for pose 0, which must equal the serving render bit
+     for bit; the seconds of the write, the import and the load;
   8. "densify" and "partition_densify": step 6's set-up under each engine
      with densify_from_iter 1, densification_interval 2,
      opacity_reset_interval 3 and the capacity of its live count rounded up
@@ -94,7 +128,7 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      COLMAP scene ("cli": configs/default.yml, the default protocol) and a
      Photo Tourism capture ("cli_nerfw": configs/phototourism.yml, the
      NeRF-W protocol, which fits an appearance embedding to each scored
-     image's left half, here in 32 iterations of the config's 128) written
+     image's left half, here in 16 iterations of the config's 128) written
      to disk from the surfel scene's 1.5M points and 16 of the serving
      model's renders as 8-bit PNGs (1280x720; the capture in 1280x720,
      1024x768, 960x720 and 1022x683, whose halves are 511 wide and whose
@@ -237,6 +271,36 @@ TRAIN_STEPS, TRAIN_PROFILE_STEPS = 8, 2
 # dropout 0.5) acting from the first step
 TRAIN_UNCERTAINTY = dict(uncertainty_warmup_start=0, uncertainty_protected_iters=0)
 PARTITION_REQUESTS, PARTITION_STEPS = 4, 4
+# each training path's configuration over configs/default.yml
+TRAIN_OVERRIDES = {
+    "train": dict(uncertainty_mode="disabled"),
+    "train_uncertainty": TRAIN_UNCERTAINTY,
+    "partition_train": dict(uncertainty_mode="disabled", pallas_binning="partition"),
+    "train_satcull": dict(uncertainty_mode="disabled", saturation_culling=True),
+    "gather_train": dict(uncertainty_mode="disabled", pallas_binning="gather"),
+    "tiled_train": dict(uncertainty_mode="disabled", rasterizer_backend="tiled"),
+}
+# "train_satcull": 8 steps over the 4 cameras (each visited twice); the
+# gather engine's paths; the tiled backend's (requests, steps); the
+# trajectory's frames between the 4 serving poses
+# (the tiled steps are not traced: every gradient must show in them, and
+# a fresh Gaussian is a sphere, whose rotation gets none in the first)
+SATCULL_STEPS, GATHER_REQUESTS, GATHER_STEPS, TILED_REQUESTS, TILED_STEPS = 8, 4, 4, 2, 2
+TRAJECTORY_FRAMES = 30
+# the saturation cull changes an image by less than the early exit's
+# tolerance (tests/test_satcull.py's bound); the occluded check scene: wall
+# layers of SAT_WALL x SAT_WALL Gaussians in front of SAT_FAR far points
+TOL_CULL = 5e-3
+SAT_WALL, SAT_FAR = 128, 4000
+# the test's walls are at opacity 0.99, alpha's cap, where the entry at
+# which a pixel stops can carry a weight of up to 1e-2 (T before it under
+# 1e-4 / (1 - 0.99)): K1's product and its plain version's log-space sum
+# round T differently, so such a pixel may differ by up to 1e-2 (7.3e-3 on
+# 1 of 196,608 pixels on an H100), past K1's hold (TOL_MAX). At 0.9 the
+# stopping entry's weight stays under 1e-3
+SAT_OPACITY = 0.9
+# a trajectory frame against the model's render of its camera: within 1/255
+TOL_FRAME = 1.0 / 255.0
 # the densify phase's schedule: iteration 2 densifies (and grows the store),
 # 3 resets the opacities, 4 densifies with size pruning, 5 trains on the
 # grown store
@@ -257,9 +321,9 @@ TOL_STATIC = 1e-6
 # NeRF-W protocol's embedding fits run CLI_NERFW_FIT_ITERS iterations, not
 # the config's 128: once the tile budget has grown (step 10: the sky's
 # first-step footprints overflow it), an iteration takes ~0.2 s on an H100
-# (80GB HBM3, 700 W), so the run's 8 fits of 128 would add ~150 s to a
-# script that must end well inside its time limit
-CLI_IMAGES, CLI_ITERS, CLI_NERFW_FIT_ITERS = 16, 200, 32
+# (80GB HBM3, 700 W), so the run's 8 fits of 128 would add ~200 s (of 32,
+# ~50 s) to a script that must end well inside its time limit
+CLI_IMAGES, CLI_ITERS, CLI_NERFW_FIT_ITERS = 16, 200, 16
 CLI_EVAL_FEW = {"cli": "100,200", "cli_nerfw": "200"}
 CLI_NERFW_SIZES = ((1280, 720), (1024, 768), (960, 720), (1022, 683))
 CLI_NERFW_TEST = (3, 10)
@@ -273,7 +337,14 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase's or a check's line also gets the
+    script's wall-clock seconds so far (`t_s`)."""
+    if "phase" in obj or "check" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -302,20 +373,22 @@ def kernels():
                  wrapper=blend.blend_forward, plain=blend.blend_forward_plain,
                  paths=("serve", "train", "train_uncertainty", "partition_serve",
                         "partition_train", "densify", "partition_densify", "cli", "cli_nerfw",
-                        "raster")),
+                        "train_satcull", "gather_serve", "gather_train", "trajectory",
+                        "reference_import", "raster")),
             dict(name="blend_bwd", route="cuda", source="wildgaussians_torch/csrc/blend_bwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:493",
                  also_replaces=["wildgaussians_tpu/ops/rasterize_pallas.py:482",
                                 "wildgaussians_tpu/ops/rasterize_pallas.py:501"],
                  wrapper=blend.blend_backward, plain=blend.blend_backward_plain,
                  paths=("train", "train_uncertainty", "partition_train", "densify",
-                        "partition_densify", "cli", "cli_nerfw", "raster")),
+                        "partition_densify", "cli", "cli_nerfw", "train_satcull", "gather_train",
+                        "raster")),
             dict(name="tier2_merge", route="cuda",
                  source="wildgaussians_torch/csrc/tier2_merge.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:872",
                  wrapper=blend.tier2_merge, plain=blend.tier2_merge_plain,
                  paths=("train", "train_uncertainty", "partition_train", "densify",
-                        "partition_densify", "cli", "cli_nerfw", "raster")),
+                        "partition_densify", "cli", "cli_nerfw", "train_satcull", "raster")),
             dict(name="blend_fwd_planar", route="cuda",
                  source="wildgaussians_torch/csrc/blend_fwd_planar.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:1472",
@@ -423,11 +496,17 @@ def kernel_calls(captured, radix):
     return stack
 
 
-def set_binning(ckpt, binning):
-    """Make the checkpoint's config.yaml name `binning` (its last key wins)."""
+def set_config(ckpt, key, value):
+    """Make the checkpoint's config.yaml set `key` to `value` (its last key
+    wins)."""
     with open(os.path.join(ckpt, "config.yaml"), "a", encoding="utf8") as f:
-        f.write(f"pallas_binning: {binning}\n")
+        f.write(f"{key}: {value}\n")
     return ckpt
+
+
+def set_binning(ckpt, binning):
+    """Make the checkpoint's config.yaml name `binning`."""
+    return set_config(ckpt, "pallas_binning", binning)
 
 
 def check_radix(calls, label):
@@ -466,15 +545,21 @@ def camera(pose, width, height, f):
                        image_sizes=np.array([[width, height]], np.int32))
 
 
+# (yaw, translation) of the four serving poses
+POSE_PARAMS = ((0.0, (0.0, 0.0, 0.0)), (0.06, (0.4, -0.1, 0.5)),
+               (-0.08, (-0.5, 0.1, 1.0)), (0.03, (0.2, 0.15, -0.5)))
+
+
+def pose_of(yaw, t):
+    """The camera-to-world [3, 4] pose of a yaw about y and a translation."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    return np.concatenate([R, np.array(t, dtype=np.float64)[:, None]], axis=1)
+
+
 def poses():
     """Four camera-to-world poses around the surfel scene's identity camera."""
-    out = []
-    for yaw, t in ((0.0, (0.0, 0.0, 0.0)), (0.06, (0.4, -0.1, 0.5)),
-                   (-0.08, (-0.5, 0.1, 1.0)), (0.03, (0.2, 0.15, -0.5))):
-        c, s = np.cos(yaw), np.sin(yaw)
-        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
-        out.append(np.concatenate([R, np.array(t)[:, None]], axis=1))
-    return out
+    return [pose_of(yaw, t) for yaw, t in POSE_PARAMS]
 
 
 def make_checkpoint(root, name, n, width, height):
@@ -484,8 +569,8 @@ def make_checkpoint(root, name, n, width, height):
 
 def compare(kernel_out, plain_out):
     """(max abs error, pixels over TOL_PIXEL, pixels) over colors and final_T."""
-    kc, kt, _kw = kernel_out
-    pc, pt, _pw = plain_out
+    kc, kt = kernel_out[:2]
+    pc, pt = plain_out[:2]
     err = torch.maximum((kc - pc).abs().amax(dim=(0, 3)), (kt - pt).abs())   # [T, 256]
     return float(err.max()), int((err > TOL_PIXEL).sum()), err.numel()
 
@@ -496,11 +581,17 @@ def check_kernel(k, inputs, label):
     torch.cuda.synchronize()
     max_err, over, total = compare(out, plain)
     walked_diff = int((out[2] != plain[2]).sum())
+    saturated = int(out[3].sum())
     emit({"check": k["name"], "at": label, "max_abs_err": max_err, "pixels_over_1e-4": over,
-          "pixels": total, "tiles_walked_differently": walked_diff})
+          "pixels": total, "tiles_walked_differently": walked_diff,
+          "tiles_saturated": saturated, "tiles": int(out[3].numel()),
+          "saturation_vote_equal": bool(torch.equal(out[3], plain[3]))})
     check(max_err <= TOL_MAX and over <= TOL_FRAC * total,
           f"{k['name']} disagrees with its plain version at {label}: max {max_err}, "
           f"{over} of {total} pixels over {TOL_PIXEL}")
+    check(torch.equal(out[3], plain[3]),
+          f"{k['name']}'s saturation vote differs from its plain version's at {label} on "
+          f"{int((out[3] != plain[3]).sum())} tiles")
     return max_err, over
 
 
@@ -562,8 +653,8 @@ def k2_inputs(pkg, n_passes, grid, gcol=None, seed=SEED):
     from wildgaussians_torch.ops import blend
     b = pkg.blend
     table = b["table"][:6 + 3 * n_passes]
-    colors, final_t, _ = blend.blend_forward(table, b["tile_starts"], b["tile_counts"], grid,
-                                             n_passes)
+    colors, final_t = blend.blend_forward(table, b["tile_starts"], b["tile_counts"], grid,
+                                          n_passes)[:2]
     g = torch.Generator(device=table.device).manual_seed(seed)
     if gcol is None:
         gcol = torch.randn(colors.shape, generator=g, device=table.device) * 1e-3
@@ -632,17 +723,19 @@ def full_training_set(serve_model, cams):
     return training_set(cams, images, xyz, colors), xyz
 
 
-def check_train_step(gpu_model, cams, binning="sort", uncertainty=False):
-    """One training step with `pallas_binning: binning` on the card against
-    the same step on the CPU from the same state (the CPU model's init
-    copied to the card), at active SH degree 3 with anisotropic scales so
-    that every parameter gets gradient: every parameter's gradient, read
-    where the step hands it to Adam, and the metrics; and the SSIM map the
-    card's step computed against the CPU's `ssim` on its inputs (TOL_SSIM).
-    With `uncertainty`, the step runs the uncertainty model
-    (CHECK_UNCERTAINTY; the head's gradients join the parameters'), and
-    check_uncertainty holds its parts. Returns the K5/K6 calls of the card's
-    step (radix_calls) and the CPU model after its step."""
+def check_train_step(gpu_model, cams, binning="sort", uncertainty=False, extra=None):
+    """One training step with `pallas_binning: binning` (and the config
+    overrides `extra`) on the card against the same step on the CPU from the
+    same state (the CPU model's init copied to the card), at active SH
+    degree 3 with anisotropic scales so that every parameter gets gradient:
+    every parameter's gradient, read where the step hands it to Adam, and
+    the metrics; and the SSIM map the card's step computed against the
+    CPU's `ssim` on its inputs (TOL_SSIM). With `uncertainty`, the step runs
+    the uncertainty model (CHECK_UNCERTAINTY; the head's gradients join the
+    parameters'), and check_uncertainty holds its parts. With
+    `saturation_culling` in `extra`, both steps bin under one map of camera
+    0 (cull_map), and the maps they write back are compared. Returns the K5/K6 calls of the
+    card's step (radix_calls) and the CPU model after its step."""
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.models import gaussian_store as gs
     from wildgaussians_torch.models import wildgaussians as trainer
@@ -650,7 +743,7 @@ def check_train_step(gpu_model, cams, binning="sort", uncertainty=False):
     xyz, colors = surfel_points(CHECK_N, CHECK_W, CHECK_H)
     ds = training_set(cams, images, xyz, colors)
     overrides = dict(uncertainty_mode="disabled", num_sky_gaussians=CHECK_SKY,
-                     pallas_binning=binning)
+                     pallas_binning=binning, **(extra or {}))
     if uncertainty:
         overrides.update(CHECK_UNCERTAINTY)
     cpu = WildGaussians(train_dataset=ds, config_overrides=overrides, device="cpu")
@@ -668,6 +761,11 @@ def check_train_step(gpu_model, cams, binning="sort", uncertainty=False):
         m.aux = m.aux._replace(
             active_sh_degree=torch.tensor(3, dtype=torch.int32, device=m.device),
             filter_3D=cpu.aux.filter_3D.to(m.device))
+    sat = None
+    if overrides.get("saturation_culling"):
+        sat = cull_map(cpu)
+        for m in (cpu, card):
+            m._sat_cache_for(*m._pad_wh[0])[0] = sat.to(m.device)
     grads, metrics, seconds, radix, ssim_io, loss_mult = {}, {}, {}, {}, {}, {}
     ssim = trainer.ssim
 
@@ -708,12 +806,20 @@ def check_train_step(gpu_model, cams, binning="sort", uncertainty=False):
         check(per_param[k]["share_over_tol"] <= TOL_GRAD_FRAC,
               f"train step: the gradient of {k} differs between the card and the CPU: {per_param[k]}")
     metric_err = {k: abs(m_card[k] - v) / max(abs(v), 1e-12) for k, v in m_cpu.items()}
+    sat_maps = {}
+    if sat is not None:
+        new = [m._sat_cache_for(*m._pad_wh[0])[0].cpu() for m in (cpu, card)]
+        sat_maps = {"map_depth": float(sat.max()),
+                    "new_map_finite_share": float(torch.isfinite(new[0]).float().mean()),
+                    "new_map_equal_share": float((new[0] == new[1]).float().mean())}
+        check(sat_maps["new_map_equal_share"] >= 0.99,
+              f"the step's saturation maps differ between the card and the CPU: {sat_maps}")
     # the step's SSIM map against the CPU's on the same inputs, with the
     # process's TF32 flags at torch's defaults
     ssim_err = float((ssim(ssim_io["img"], ssim_io["gt"], size_average=False)
                       - ssim_io["out"]).abs().max())
     emit({"check": "train step, card vs CPU", "binning": binning, "size": [CHECK_W, CHECK_H],
-          "uncertainty": uncertainty, "gaussians": int(m_cpu["num_gaussians"]),
+          "uncertainty": uncertainty, "overrides": extra or {}, **sat_maps, "gaussians": int(m_cpu["num_gaussians"]),
           "cpu_step_s": seconds["cpu"], "metrics_cpu": m_cpu, "metrics_card": m_card,
           "metric_rel_err": metric_err, "gradients": per_param,
           "ssim_map_max_abs_diff": ssim_err,
@@ -725,6 +831,124 @@ def check_train_step(gpu_model, cams, binning="sort", uncertainty=False):
     if uncertainty:
         check_uncertainty(cpu, card, loss_mult, images[0])
     return radix, cpu
+
+
+def cull_map(model):
+    """A saturation map for camera 0 that culls about half of the cells:
+    every supertile at the median distance of the live Gaussians from the
+    camera. (At the check size nothing saturates in an initial store, so a
+    map of its own exit depths would be all +inf and cull nothing.)"""
+    from wildgaussians_torch.ops.rasterize_tiled import make_grid
+    from wildgaussians_torch.ops.sort_engine import supertile_shape
+    xyz = model.params["xyz"].detach()[model.aux.alive]
+    median = torch.linalg.norm(xyz - model._poses_dev[0][:, 3], dim=-1).median()
+    return torch.full(supertile_shape(make_grid(*model._pad_wh[0], 16)), float(median))
+
+
+def occluded_scene(width, height):
+    """tests/test_satcull.py's occluded scene, scaled up: 5 wall layers of
+    SAT_WALL x SAT_WALL Gaussians at z 4.6-5.4 over the frame (red, sigma
+    the layer's spacing; over 256 entries a tile, so that the exit chunk's
+    end lies in the wall) in front of SAT_FAR far points at z = 20 (blue),
+    seen by the identity camera at a 60 degree field of view, every
+    opacity SAT_OPACITY. Returns (xyz, scales, rotations, opacities,
+    colors) and the focal length."""
+    rng = np.random.default_rng(SEED)
+    xyz, scales = [], []
+    for z in (4.6, 4.8, 5.0, 5.2, 5.4):
+        ext = z * 0.75
+        xs, ys = np.meshgrid(np.linspace(-ext, ext, SAT_WALL), np.linspace(-ext, ext, SAT_WALL))
+        xyz.append(np.stack([xs.ravel(), ys.ravel(), np.full(xs.size, z)], -1))
+        scales.append(np.full((xs.size, 3), 2 * ext / (SAT_WALL - 1)))
+    n_wall = sum(len(x) for x in xyz)
+    xyz.append(np.stack([rng.uniform(-12, 12, SAT_FAR), rng.uniform(-12, 12, SAT_FAR),
+                         np.full(SAT_FAR, 20.0)], -1))
+    scales.append(np.full((SAT_FAR, 3), 0.6))
+    xyz, scales = np.concatenate(xyz), np.concatenate(scales)
+    n = len(xyz)
+    rots = np.tile(np.array([1.0, 0, 0, 0]), (n, 1))
+    opac = np.full(n, SAT_OPACITY)
+    colors = np.zeros((n, 3))
+    colors[:n_wall, 0] = 0.9
+    colors[n_wall:, 2] = 0.9
+    f = width / (2 * np.tan(np.radians(30.0)))
+    return tuple(np.asarray(a, np.float32) for a in (xyz, scales, rots, opac, colors)), f
+
+
+def render_occluded(scene, f, width, height, device, sat_super=None, pre=None):
+    """The occluded scene's sort-engine render on `device` (the preprocess
+    of `pre`'s arrays when given), as tests/test_torch_satcull.py renders
+    it: (image [H, W, 3], the blend's aux, the preprocess)."""
+    from wildgaussians_torch.cameras import make_camera_params
+    from wildgaussians_torch.ops import blend
+    from wildgaussians_torch.ops.gaussians import compute_cov3d, preprocess
+    from wildgaussians_torch.ops.rasterize_tiled import make_grid
+    xyz, scales, rots, opac, colors = (torch.as_tensor(a, device=device) for a in scene)
+    with torch.no_grad():
+        if pre is None:
+            cam, _w, _h = make_camera_params(camera(np.eye(4)[:3], width, height, f),
+                                             device=torch.device(device))
+            pre = preprocess(xyz, compute_cov3d(scales, rots), opac, cam, width, height, 0.1)
+        else:
+            pre = pre._replace(**{k: v.to(device) for k, v in pre._asdict().items()})
+        (out,), aux = blend.rasterize_multi(
+            pre.mean2d, pre.conic, pre.opacity, [colors], pre.depth, pre.rect_min, pre.rect_max,
+            pre.tiles_touched, pre.valid, torch.zeros(3, device=device),
+            grid=make_grid(width, height, 16), max_tiles_per_gaussian=16, d_small=4,
+            big_fraction=0.5, sat_super=sat_super)
+    return out[0], aux, pre
+
+
+def check_satcull(errs):
+    """The saturation cull on the occluded scene at the check size: K1 (and
+    its vote) against its plain version on the unculled table, the per-tile
+    saturation depths against those of the plain walk (bit for bit) and of
+    the whole binning and blend on the CPU from the same preprocess arrays;
+    the pooled map culls cells and changes the image by at most TOL_CULL; a
+    +inf map changes nothing, bit for bit."""
+    from wildgaussians_torch.ops import blend
+    from wildgaussians_torch.ops.rasterize_tiled import make_grid
+    from wildgaussians_torch.ops.sort_engine import (_sort_engine_sizes, pool_sat_depth,
+                                                     sat_depth_from_walk, supertile_shape)
+    w, h = CHECK_W, CHECK_H
+    grid = make_grid(w, h, 16)
+    scene, f = occluded_scene(w, h)
+    img0, aux0, pre = render_occluded(scene, f, w, h, DEVICE)
+    label = f"the occluded scene at {w}x{h}, {len(scene[0])} Gaussians"
+    inputs = (aux0["table"], aux0["tile_starts"], aux0["tile_counts"], grid, 1)
+    errs["blend_fwd"].append(check_kernel(kernel_by_name("blend_fwd"), inputs, label))
+    _c, _t, p_walked, p_sat = blend.blend_forward_plain(*inputs)
+    depth_bits = _sort_engine_sizes(grid, len(scene[0]), 16, 4, 0.5).depth_bits
+    plain_depth = sat_depth_from_walk(p_walked, p_sat, aux0["tile_starts"], aux0["tile_counts"],
+                                      aux0["sorted_key"], depth_bits)
+    check(torch.equal(plain_depth, aux0["sat_depth"]),
+          f"sat_depth differs from the plain walk's at {label}")
+    _i, aux_cpu, _p = render_occluded(scene, f, w, h, "cpu", pre=pre)
+    sat_card, sat_cpu = aux0["sat_depth"].cpu(), aux_cpu["sat_depth"]
+    differ = int((sat_card != sat_cpu).sum())
+    finite = torch.isfinite(sat_card)
+    check(bool(finite.any()), f"no tile saturated at {label}")
+    check(differ <= 0.005 * sat_card.numel(),
+          f"sat_depth differs between the card and the CPU on {differ} tiles")
+    sat_super = pool_sat_depth(aux0["sat_depth"], grid)
+    img1, aux1, _p = render_occluded(scene, f, w, h, DEVICE, sat_super=sat_super, pre=pre)
+    vis = [int(aux0["vis_count"].sum()), int(aux1["vis_count"].sum())]
+    diff = float((img1 - img0).abs().max())
+    inf_map = torch.full(supertile_shape(grid), torch.inf, device=DEVICE)
+    img_inf, aux_inf, _p = render_occluded(scene, f, w, h, DEVICE, sat_super=inf_map, pre=pre)
+    identity = torch.equal(img_inf, img0) and all(
+        torch.equal(aux_inf[k], aux0[k]) for k in ("table", "tile_starts", "sorted_flat",
+                                                   "walked", "saturated", "sat_depth"))
+    emit({"check": "saturation cull", "at": label, "tiles": int(sat_card.numel()),
+          "tiles_saturated": int(finite.sum()), "sat_depth_equal_plain_walk": True,
+          "sat_depth_tiles_differ_cpu": differ,
+          "map_finite_share": float(torch.isfinite(sat_super).float().mean()),
+          "visible_cells": vis, "binned_entries": [int(aux0["tile_counts"].sum()),
+                                                   int(aux1["tile_counts"].sum())],
+          "max_abs_diff_with_map": diff, "inf_map_identity": identity})
+    check(vis[1] < vis[0], f"the cull did not fire at {label}")
+    check(diff <= TOL_CULL, f"the map changes the image by {diff} at {label}")
+    check(identity, f"a +inf map changes the render at {label}")
 
 
 def check_uncertainty(cpu, card, loss_mult, image):
@@ -985,7 +1209,21 @@ def phase_check(tmp, errs):
     for name, err in check_radix(radix, f"a partition training step at {CHECK_W}x{CHECK_H}, "
                                         f"{CHECK_N} points + {CHECK_SKY} sky").items():
         errs[name].append(err)
-    del gpu, pkg, radix
+    del radix
+    # the saturation cull: on the occluded scene, then one step under a map
+    check_satcull(errs)
+    check_train_step(gpu, train_cams, extra=dict(saturation_culling=True))
+    # the gather engine and the tiled backend: the render path and one
+    # training step each, card vs CPU
+    set_binning(ckpt, "gather")
+    compare_render_path(WildGaussians(checkpoint=ckpt), WildGaussians(checkpoint=ckpt, device="cpu"),
+                        cam, opts, "gather")
+    check_train_step(gpu, train_cams, binning="gather")
+    set_config(set_binning(ckpt, "sort"), "rasterizer_backend", "tiled")
+    compare_render_path(WildGaussians(checkpoint=ckpt), WildGaussians(checkpoint=ckpt, device="cpu"),
+                        cam, opts, "tiled backend")
+    check_train_step(gpu, train_cams, extra=dict(rasterizer_backend="tiled"))
+    del gpu, pkg
     torch.cuda.empty_cache()
 
 
@@ -1031,20 +1269,24 @@ def launches_per_unit(model, path):
     return per
 
 
-def phase_serve(model, cams, requests, path, errs, reference=None, extra=None):
+def phase_serve(model, cams, requests, path, errs, reference=None, extra=None,
+                profile_requests=PROFILE_REQUESTS):
     """The serving path `path` at full width: `requests` ((pose, options)
     pairs, the first a warm-up) of `model`, each timed and its output
     checked, with each kernel's launches per request. K1 (and K5 on the
     partition path) is held against its plain version on the arguments the
     first request, and the first depth request, passed it (outside the
     timed requests), and timed on the first's. Then per-pose counters,
-    where a request's time goes (phase_profile), and with a `reference`
+    where a request's time goes (phase_profile over `profile_requests`, none if 0), and with a
+    `reference`
     model pose 0's agreement with its render (printed only: the engines'
     entry order may differ where 24-bit depth keys tie). Returns each
     kernel's launches over the requests and K1's timing."""
     ks = [k for k in kernels() if path in k["paths"]]
     per_request = launches_per_unit(model, path)
     hold_at = {0, next((i for i, (_p, o) in enumerate(requests) if o and "outputs" in o), 0)}
+    if not ks:
+        hold_at = set()    # the tiled backend launches no kernel
     for k in ks:
         k["wrapper"].launches = 0
     request_ms, acc_means, per_request_launches, timing, peak = [], [], [], None, 0
@@ -1089,10 +1331,11 @@ def phase_serve(model, cams, requests, path, errs, reference=None, extra=None):
     for i, cam in enumerate(cams):
         pkg = model.render_pkg(cam)
         per_pose.append({"pose": i, "overflow": int(pkg.overflow),
-                         "num_rendered": int(pkg.num_rendered),
-                         "table": list(pkg.blend["table"].shape),
-                         "binned_entries": int(pkg.blend["tile_counts"].sum()),
-                         "walked_entries": int(pkg.blend["walked"].sum())})
+                         "num_rendered": int(pkg.num_rendered)})
+        if pkg.blend:
+            per_pose[-1].update(table=list(pkg.blend["table"].shape),
+                                binned_entries=int(pkg.blend["tile_counts"].sum()),
+                                walked_entries=int(pkg.blend["walked"].sum()))
         check(int(pkg.overflow) == 0, f"overflow {int(pkg.overflow)} at pose {i} ({path})")
     del pkg
     if reference is not None:
@@ -1100,12 +1343,14 @@ def phase_serve(model, cams, requests, path, errs, reference=None, extra=None):
         extra = dict(extra or {}, vs_reference_pose0={
             "max_abs_diff": float(d.max()), "pixels_over_1e-3": int((d.max(-1) > 1e-3).sum()),
             "psnr_db": float(-10 * np.log10(max(np.mean(d ** 2), 1e-20)))})
-    emit({"phase": path, "binning": model.config.pallas_binning, "gaussians": FULL_N,
+    emit({"phase": path, "binning": model.config.pallas_binning,
+          "backend": model.config.rasterizer_backend, "gaussians": FULL_N,
           "size": [FULL_W, FULL_H], "request_ms": request_ms, "warmup_ms": request_ms[0],
           "steady_mean_ms": float(np.mean(request_ms[1:])), "launches_per_request": per_request,
           "mean_accumulation": acc_means, "per_pose": per_pose,
           "peak_mem_gib_after_warmup": peak / 2 ** 30, **(extra or {})})
-    phase_profile(model, cams[0], path)
+    if profile_requests:
+        phase_profile(model, cams[0], path, profile_requests)
     return launches, timing
 
 
@@ -1164,13 +1409,12 @@ def device_window(prof, traced_us, n, unit):
                                 f"per_{unit}": count / n} for name, (us, count) in top]}
 
 
-def phase_profile(model, cam, path):
+def phase_profile(model, cam, path, n):
     """Where a request's time goes (pose 0, raw + toned passes): the stage
-    spans over PROFILE_REQUESTS requests, then one torch.profiler window
-    over as many, whose device busy time (the union of its kernel and copy
-    intervals), idle share and launch count are all read from that window."""
+    spans over n requests, then one torch.profiler window over as many,
+    whose device busy time (the union of its kernel and copy intervals),
+    idle share and launch count are all read from that window."""
     from wildgaussians_torch.spans import SpanTimer
-    n = PROFILE_REQUESTS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with SpanTimer() as timer:
@@ -1196,26 +1440,29 @@ def phase_profile(model, cam, path):
 
 
 def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
-    """The training path `path` at full width ("train": the sort engine,
-    "partition_train": `pallas_binning: partition`, both with uncertainty
+    """The training path `path` at full width, under TRAIN_OVERRIDES[path]
+    ("train": the sort engine, "partition_train", "gather_train": the
+    partition and gather engines, "train_satcull": the sort engine with the
+    saturation cull, "tiled_train": the tiled backend, all with uncertainty
     disabled; "train_uncertainty": the sort engine with configs/default.yml's
-    uncertainty model acting from the first step, TRAIN_UNCERTAINTY; see
-    the module docstring): n_steps steps, the first a warm-up whose kernel
-    arguments are recorded and held right after it (hold_step, outside the
-    timed steps); spans on the steps between, a profiler window on the last
-    profile_steps. With the uncertainty model, also each step's share of
+    uncertainty model acting from the first step; see the module
+    docstring): n_steps steps, the first a warm-up whose kernel arguments
+    are recorded and held right after it (hold_step, outside the timed
+    steps); spans on the steps between, a profiler window on the last
+    profile_steps (none if 0). With the uncertainty model, also each step's share of
     pixels whose loss_mult is 0 (read after the steps) and whether its
-    batch-norm statistics moved and stayed finite. Returns each kernel's
-    launches over the steps and the timings of hold_step."""
+    batch-norm statistics moved and stayed finite; with the cull, what it
+    culled (satcull_report). Returns each kernel's launches over the steps
+    and the timings of hold_step."""
     from wildgaussians_torch import WildGaussians
     from wildgaussians_torch.models import gaussian_store as gs
     from wildgaussians_torch.models import wildgaussians as trainer
     from wildgaussians_torch.spans import SpanTimer
-    binning = "partition" if path == "partition_train" else "sort"
+    overrides = dict(TRAIN_OVERRIDES[path])
+    binning = overrides.get("pallas_binning", "sort")
     ks = [k for k in kernels() if path in k["paths"]]
     uncertainty = path == "train_uncertainty"
-    overrides = (dict(TRAIN_UNCERTAINTY) if uncertainty
-                 else dict(uncertainty_mode="disabled", pallas_binning=binning))
+    satcull = overrides.get("saturation_culling", False)
     ds, xyz = full_training_set(serve_model, cams)
     knn_points = []
     torch.cuda.synchronize()
@@ -1224,7 +1471,9 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
         model = WildGaussians(train_dataset=ds, config_overrides=overrides)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    loss_mults, bn0 = [], None
+    loss_mults, bn0, rendered = [], None, []
+    if satcull:
+        check(model._use_satcull(), f"{path}: the cull is off")
     if uncertainty:
         check(model.config.uncertainty_mode == "dino", "train_uncertainty's config")
         bn0 = {k: v.clone() for k, v in model._uncertainty.bn_state.items()}
@@ -1269,7 +1518,9 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
         before = {k["name"]: k["wrapper"].launches for k in ks}
         torch.cuda.synchronize()
         r0 = time.perf_counter()
-        with kernel_calls(captured, radix) if step == 0 else contextlib.nullcontext():
+        with kernel_calls(captured, radix) if step == 0 else contextlib.nullcontext(), \
+                results_of(trainer, "render_internal", rendered.append) if satcull else \
+                contextlib.nullcontext():
             metrics = model.train_iteration(step)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - r0) * 1e3
@@ -1279,9 +1530,14 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
             "loss", "psnr", "num_rendered", "overflow", "max_tiles", "num_gaussians",
             "uncertainty_loss", "beta") if key in metrics}})
         check(np.isfinite(metrics["loss"]), f"{path}: loss at step {step} is {metrics['loss']}")
+        if satcull:
+            pkg = rendered.pop()
+            steps[-1].update(camera=model._last_camera_id,
+                             binned_entries=pkg.blend["tile_counts"].sum())
+            del pkg
         if step < n_plain:
             fold()
-        if step == 0:
+        if step == 0 and ks:
             label = (f"{path} step 0 at {FULL_W}x{FULL_H}, {metrics['num_gaussians']} "
                      f"Gaussians, {captured['blend_fwd'][4]} passes")
             timings = hold_step(captured, radix, stages_of, label, errs)
@@ -1295,9 +1551,12 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
         with SpanTimer() as timer:
             for step in range(1, n_plain):
                 run(step)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        traced_us = sum(run(step) for step in range(n_plain, n_steps)) * 1e3
+    window = {}
+    if profile_steps:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            traced_us = sum(run(step) for step in range(n_plain, n_steps)) * 1e3
+        window = device_window(prof, traced_us, profile_steps, "step")
     # the steps' own launches (not those of hold_step's checks)
     launches = {k["name"]: sum(per[k["name"]] for per in per_step_launches) for k in ks}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1313,8 +1572,10 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
             check(v == 0.0, f"features_rest has gradient {v} at SH degree 0")
         else:
             check(v > 0.0, f"{k} got no gradient in {n_plain} steps")
-    n_span = n_plain - 1
+    n_span = max(n_plain - 1, 1)
     extra = {}
+    if satcull:
+        extra = satcull_report(model, steps)
     if uncertainty:
         bn = model._uncertainty.bn_state
         moved = {k: float((bn[k] - bn0[k]).abs().max()) for k in bn}
@@ -1327,17 +1588,264 @@ def phase_train(serve_model, cams, path, n_steps, profile_steps, errs):
                  "loss_mult_share_below_1": [float((lm < 1).float().mean()) for lm in loss_mults],
                  "bn_state_max_moved": moved, "uncertainty_dropout": model.config.uncertainty_dropout}
         check(len(loss_mults) == n_steps, f"{path}: {len(loss_mults)} loss_mult maps")
-    emit({"phase": path, "binning": binning, "points": int(len(xyz)),
+    emit({"phase": path, "binning": binning, "backend": model.config.rasterizer_backend,
+          "points": int(len(xyz)),
           "capacity": int(model.params["xyz"].shape[0]), "size": [FULL_W, FULL_H],
           "setup_s": setup_s, "steps": steps, "warmup_ms": steps[0]["ms"],
-          "steady_mean_ms": float(np.mean([st["ms"] for st in steps[1:n_plain]])),
+          "steady_mean_ms": float(np.mean([st["ms"] for st in steps[1:max(n_plain, 2)]])),
           "launches_per_step": per_step, "peak_mem_gib_after_warmup": peak_gib,
           "grad_max_abs": grad_max,
           **({"engine_sizes": engine_sizes(model)._asdict()} if stages_of else {}),
           "stage_device_ms": {name: ms / n_span for name, (ms, _c) in stages.items()},
           "stage_spans_per_step": {name: c / n_span for name, (_ms, c) in stages.items()},
-          **extra, **device_window(prof, traced_us, profile_steps, "step")})
+          **extra, **window})
     return launches, timings
+
+
+def satcull_report(model, steps):
+    """What the saturation cull did over a training path's steps: each
+    step's binned entries (read here, after the steps) against its camera's
+    first visit, which runs under a +inf map; each camera's share of finite
+    supertiles in its map; and, for the camera whose map is the most
+    finite, renders (as its step renders it, from the parameters after the
+    steps) without a map, with the map its last visit left (a revisit) and
+    with a map pooled from the unculled render itself, each against the
+    unculled image: measured under the trainer's config, and held (fatal,
+    TOL_CULL) for the render's own map with a big-Gaussian pool of every
+    Gaussian. Under the trainer's pool (`pallas_big_fraction`), which the
+    sky's footprints overflow, the cull also changes which Gaussians get
+    the pool's deep slots: a culled cell lowers its Gaussian's visible
+    count, frees a slot, and a Gaussian that was cut to its cheap slots
+    gets its cells back, so the images differ by more than the cull
+    itself."""
+    from wildgaussians_torch.device import full_f32
+    from wildgaussians_torch.models import gaussian_store as gs
+    from wildgaussians_torch.models.renderer import render_internal
+    from wildgaussians_torch.ops.rasterize_tiled import make_grid
+    from wildgaussians_torch.ops.sort_engine import pool_sat_depth
+    first = {}
+    for st in steps:
+        st["binned_entries"] = int(st["binned_entries"])
+        c = st["camera"]
+        if c in first:
+            st["binned_vs_first_visit"] = st["binned_entries"] / max(first[c], 1)
+        else:
+            first[c] = st["binned_entries"]
+    n_cams = len(model.train_cameras)
+    check(all(sum(st["camera"] == c for st in steps) >= 2 for c in range(n_cams)),
+          "train_satcull: a camera was not visited twice")
+    check(len(model._sat_caches) == 1, f"train_satcull: {len(model._sat_caches)} canvases")
+    (pw, ph), cache = next(iter(model._sat_caches.items()))
+    finite = torch.isfinite(cache).float().mean(dim=(1, 2)).tolist()
+    c = int(np.argmax(finite))
+    aw, ah = model._sizes[c]
+    config = model.config
+
+    def render(gaussians, sat):
+        return render_internal(
+            gaussians, model.params, model.mlp, model.aux.active_sh_degree, model.aux.alive,
+            config, model._poses_dev[c], model._intr_dev[c], pw, ph,
+            embedding=model.params["appearance_embeddings"][c],
+            kernel_size=config.kernel_size, actual_size=(aw, ah), sat_super=sat)
+
+    def against(pkg, full):
+        d = (pkg.render - full.render).abs()
+        return {"max_abs_diff": float(d.max()), "pixels_over_1e-3": int((d.amax(-1) > 1e-3).sum()),
+                "visible_cells": [int(pkg.blend["vis_count"].sum()),
+                                  int(full.blend["vis_count"].sum())],
+                "binned_entries": [int(pkg.blend["tile_counts"].sum()),
+                                   int(full.blend["tile_counts"].sum())],
+                "overflow": [int(pkg.overflow), int(full.overflow)]}
+
+    out = {}
+    big_fraction = config.pallas_big_fraction
+    with torch.no_grad(), full_f32():
+        gaussians = gs.get_gaussians(model.params, model.aux)
+        for pool, fraction in (("trainer_pool", big_fraction), ("full_pool", 1.0)):
+            config.pallas_big_fraction = fraction
+            try:
+                full = render(gaussians, None)
+                own = pool_sat_depth(full.sat_depth, make_grid(pw, ph, 16),
+                                     margin=config.saturation_margin)
+                out[pool] = {"big_fraction": fraction,
+                             "own_map": against(render(gaussians, own), full),
+                             "own_map_finite_share": float(torch.isfinite(own).float().mean())}
+                if pool == "trainer_pool":
+                    out[pool]["revisit"] = against(render(gaussians, cache[c]), full)
+            finally:
+                config.pallas_big_fraction = big_fraction
+            del full
+        del gaussians
+    revisits = [st["binned_vs_first_visit"] for st in steps if "binned_vs_first_visit" in st]
+    report = {"satcull": {"finite_supertile_share": finite, "map_shape": list(cache.shape[1:]),
+                          "revisit_binned_vs_first_visit": revisits, "camera": c,
+                          # the same parameters binned with and without a map
+                          "cull_fired": out["trainer_pool"]["own_map"]["visible_cells"][0]
+                          < out["trainer_pool"]["own_map"]["visible_cells"][1],
+                          **out, "margin": config.saturation_margin}}
+    check(out["full_pool"]["own_map"]["max_abs_diff"] <= TOL_CULL,
+          f"train_satcull: camera {c}'s own map changes its image: {report}")
+    return report
+
+
+def trajectory(n_frames):
+    """A viewer trajectory of n_frames through the four serving poses (yaw
+    and translation interpolated linearly, segment by segment) at full
+    width, whose appearance blends training embeddings 1 and 5 from the
+    first frame to the last."""
+    frames = []
+    f = FULL_W / 1.4
+    for i in range(n_frames):
+        u = i / (n_frames - 1)
+        x = u * (len(POSE_PARAMS) - 1)
+        seg = min(int(x), len(POSE_PARAMS) - 2)
+        a = x - seg
+        (y0, t0), (y1, t1) = POSE_PARAMS[seg], POSE_PARAMS[seg + 1]
+        pose = pose_of((1 - a) * y0 + a * y1, (1 - a) * np.array(t0) + a * np.array(t1))
+        frames.append({"pose": pose.astype(np.float32),
+                       "intrinsics": np.array([f, f, FULL_W / 2, FULL_H / 2], np.float32),
+                       "appearance_weights": np.array([1.0 - u, u], np.float32)})
+    return {"camera_model": "pinhole", "image_size": (FULL_W, FULL_H), "frames": frames,
+            "fps": 30.0, "appearances": [{"embedding_train_index": 1},
+                                         {"embedding_train_index": 5}]}
+
+
+def phase_trajectory(model, tmp, errs):
+    """Trajectory rendering: TRAJECTORY_FRAMES frames between the serving
+    poses with blended appearance (`trajectory_get_cameras`,
+    `trajectory_get_embeddings`), written by `render_frames` to a .tar.gz;
+    frames per second and the spans of the render and the PNG encoding;
+    then each archived frame against the model's render of its camera and
+    embedding (TOL_FRAME), and K1 held on the first frame's arguments.
+    Returns each kernel's launches over the frames."""
+    import tarfile
+    from wildgaussians_torch import evaluation
+    from wildgaussians_torch.spans import SpanTimer
+    from wildgaussians_torch.utils import image_to_srgb, read_image
+    traj = trajectory(TRAJECTORY_FRAMES)
+    cams = evaluation.trajectory_get_cameras(traj)
+    embs = evaluation.trajectory_get_embeddings(model, traj)
+    check(len(cams) == len(embs) == TRAJECTORY_FRAMES, "the trajectory's cameras and embeddings")
+    check(np.array_equal(embs[0], model.get_train_embedding(1))
+          and np.allclose(embs[-1], model.get_train_embedding(5)), "the trajectory's embeddings")
+    ks = [k for k in kernels() if "trajectory" in k["paths"]]
+    out = os.path.join(tmp, "trajectory.tar.gz")
+    reset_counts(ks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with SpanTimer() as timer:
+        evaluation.render_frames(model, cams, out, fps=traj["fps"], embeddings=embs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(ks)
+    check(launches == {k["name"]: TRAJECTORY_FRAMES for k in ks},
+          f"trajectory: launches {launches} for {TRAJECTORY_FRAMES} frames")
+    spans = timer.ms()
+    worst, captured = 0.0, {}
+    with tarfile.open(out, "r:gz") as tar:
+        names = sorted(tar.getnames())
+        check(names == [f"{i:05d}.png" for i in range(TRAJECTORY_FRAMES)],
+              f"trajectory archive holds {names[:3]}...")
+        for i in range(TRAJECTORY_FRAMES):
+            got = read_image(tar.extractfile(names[i])).astype(np.float32) / 255.0
+            with blend_calls(captured, first=True) if i == 0 else contextlib.nullcontext():
+                color = model.render(cams[i:i + 1], options={"embedding": embs[i]})["color"]
+            want = image_to_srgb(color, np.uint8, color_space="srgb",
+                                 allow_alpha=True).astype(np.float32) / 255.0
+            check(got.shape == (FULL_H, FULL_W, 3), f"trajectory frame {i}: {got.shape}")
+            worst = max(worst, float(np.abs(got - want).max()))
+    errs["blend_fwd"].append(check_kernel(kernel_by_name("blend_fwd"), captured["blend_fwd"],
+                                          f"trajectory frame 0 at {FULL_W}x{FULL_H}"))
+    emit({"phase": "trajectory", "frames": TRAJECTORY_FRAMES, "size": [FULL_W, FULL_H],
+          "seconds": seconds, "frames_per_s": TRAJECTORY_FRAMES / seconds,
+          "archive_mib": os.path.getsize(out) / 2 ** 20,
+          "span_ms": {name: ms for name, (ms, _c) in spans.items()},
+          "max_abs_diff_vs_render": worst, "launches": launches})
+    check(worst <= TOL_FRAME, f"a trajectory frame differs from its render by {worst}")
+    return launches
+
+
+def reference_state(ckpt):
+    """The checkpoint's live Gaussians as the reference's state dict
+    (`GaussianModel.state_dict()`'s keys, torch Linear weights [out, in]),
+    as tests/test_reference_import.py fabricates one."""
+    flat = dict(np.load(next(os.path.join(ckpt, x) for x in os.listdir(ckpt)
+                             if x.startswith("chkpnt-") and x.endswith(".npz"))))
+    alive = flat["aux/alive"]
+
+    def t(key, live=True):
+        x = flat[key][alive] if live else flat[key]
+        return torch.from_numpy(np.ascontiguousarray(x))
+    n = int(alive.sum())
+    state = {name: t(f"params/{name}") for name in (
+        "xyz", "features_dc", "features_rest", "scales", "rotations", "opacities", "embeddings")}
+    state["appearance_embeddings"] = t("params/appearance_embeddings", live=False)
+    for i, mi in enumerate((0, 2, 4)):
+        state[f"appearance_mlp.mlp.{mi}.weight"] = t(f"params/appearance_mlp/w{i}", False).T
+        state[f"appearance_mlp.mlp.{mi}.bias"] = t(f"params/appearance_mlp/b{i}", False)
+    state["filter_3D"] = t("aux/filter_3D")
+    state["max_radii2D"] = torch.zeros(n)
+    for name in ("denom", "xyz_grad", "xyz_gradient_accum_abs", "xyz_gradient_accum_abs_max"):
+        state[name] = torch.zeros((n, 1))
+    state["active_sh_degree"] = torch.tensor(int(flat["aux/active_sh_degree"]), dtype=torch.int32)
+    state["spatial_lr_scale"] = torch.tensor(1.0)
+    state["optimizer"] = None
+    return state
+
+
+def phase_reference_import(model, ckpt, cams, tmp, errs):
+    """The reference checkpoint import at full width: the serving
+    checkpoint's parameters written in the reference's layout as
+    `chkpnt-<step>.pth` with its config as config.yaml (the sort engine),
+    imported by `io.reference_import`, loaded through WildGaussians and
+    asked for pose 0, which must equal `model`'s render bit for bit (the
+    import pads the store to a larger capacity, whose dead slots bin no
+    entry). The seconds of the write, the import and the load; K1 held on
+    the request's arguments. Returns each kernel's launches over the
+    request."""
+    import yaml
+    from wildgaussians_torch import WildGaussians
+    from wildgaussians_torch.io.reference_import import import_reference_checkpoint
+    src, dst = os.path.join(tmp, "reference"), os.path.join(tmp, "imported")
+    os.makedirs(src)
+    t0 = time.perf_counter()
+    with open(os.path.join(ckpt, "config.yaml"), encoding="utf8") as f:
+        cfg = yaml.safe_load(f)
+    cfg["pallas_binning"] = "sort"
+    with open(os.path.join(src, "config.yaml"), "w", encoding="utf8") as f:
+        yaml.safe_dump(cfg, f)
+    state = reference_state(ckpt)
+    torch.save(state, os.path.join(src, "chkpnt-30000.pth"))
+    n = int(state["xyz"].shape[0])
+    del state
+    t1 = time.perf_counter()
+    import_reference_checkpoint(src, dst)
+    t2 = time.perf_counter()
+    imported = WildGaussians(checkpoint=dst)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ks = [k for k in kernels() if "reference_import" in k["paths"]]
+    reset_counts(ks)
+    captured = {}
+    with blend_calls(captured):
+        got = imported.render(cams[0])
+    launches = launch_counts(ks)
+    want = model.render(cams[0])
+    same = all(np.array_equal(got[k], want[k]) for k in ("color", "accumulation"))
+    errs["blend_fwd"].append(check_kernel(kernel_by_name("blend_fwd"), captured["blend_fwd"],
+                                          f"reference_import pose 0 at {FULL_W}x{FULL_H}"))
+    emit({"phase": "reference_import", "gaussians": n,
+          "capacity": int(imported.params["xyz"].shape[0]), "loaded_step": imported._loaded_step,
+          "pth_write_s": t1 - t0, "import_s": t2 - t1, "load_s": t3 - t2,
+          "pth_mib": os.path.getsize(os.path.join(src, "chkpnt-30000.pth")) / 2 ** 20,
+          "render_equal": same,
+          "max_abs_diff": float(np.abs(got["color"] - want["color"]).max()),
+          "launches": launches})
+    check(imported._loaded_step == 30000 and same,
+          "the imported checkpoint's render differs from the serving render")
+    del imported
+    torch.cuda.empty_cache()
+    return launches
 
 
 def live_count(ds, config):
@@ -1808,18 +2316,16 @@ def k3_bound_ms(sums, big_list, bigs):
 
 
 def hold_step(captured, radix, stages, label, errs):
-    """K1, K2 and K3, and on the partition path K5 and K6, on the arguments
-    a training step passed them (`captured` from blend_calls, `radix` from
+    """K1, K2 and K3 (the gather engine runs no K3), and on the partition
+    path K5 and K6, on the arguments a training step passed them (`captured` from blend_calls, `radix` from
     radix_calls): each checked against its plain version; K2 and K3 timed
     beside their plain versions, with their bounds, and K3 also beside
     `index_add_` on its valid slots; K5 and K6 timed per call (time_radix,
     `stages` naming each call's stage)."""
     from wildgaussians_torch.ops import blend
     fwd, k2 = captured["blend_fwd"], captured["blend_bwd"]
-    sums, big_list, bigs = captured["tier2_merge"]
     errs["blend_fwd"].append(check_kernel(kernel_by_name("blend_fwd"), fwd, label))
     errs["blend_bwd"].append(check_k2(k2, label))
-    errs["tier2_merge"].append(check_k3(sums, big_list, bigs, label))
     walked = blend.blend_forward(*fwd)[2]
     pairs = blend.blend_pair_counts(*k2[:4], warp_block=WARP_BLOCK)
     out = {}
@@ -1830,6 +2336,10 @@ def hold_step(captured, radix, stages, label, errs):
     emit({"phase": "timing", "kernel": "blend_bwd", "at": label, "passes": k2[4], "pairs": pairs,
           "binned_entries": int(k2[1][-1]), "walked_entries": int(walked.sum()),
           "bound_ms_all_pairs": bound_all_pairs, **out["blend_bwd"]})
+    if "tier2_merge" not in captured:    # the gather engine sums with one scatter
+        return out
+    sums, big_list, bigs = captured["tier2_merge"]
+    errs["tier2_merge"].append(check_k3(sums, big_list, bigs, label))
     scratch = sums.clone()
     ms = time_cuda_ms(lambda: blend.tier2_merge(scratch, big_list, bigs), iters=20)
     plain_ms = time_cuda_ms(lambda: blend.tier2_merge_plain(scratch, big_list, bigs), iters=5)
@@ -2112,7 +2622,7 @@ def phase_static(errs):
             table, starts, counts = args[:3]
             zero = k4["wrapper"](table, starts, counts, grid, 1,
                                  torch.zeros(3, device=xyz.device))
-            kc, kt, walked = blend.blend_forward(table, starts, counts, grid, 1)
+            kc, kt, walked, _sat = blend.blend_forward(table, starts, counts, grid, 1)
             torch.cuda.synchronize()
             equal_k1 = bool(torch.equal(zero[0, :3], kc[0].permute(2, 0, 1))
                             and torch.equal(zero[0, 3], kt))
@@ -2293,6 +2803,10 @@ def main():
         launches["train_uncertainty"], _k2k3 = phase_train(
             serve_model, cams, "train_uncertainty", TRAIN_STEPS, TRAIN_PROFILE_STEPS, errs)
         torch.cuda.empty_cache()
+        # the sort engine's steps with the saturation cull
+        launches["train_satcull"], _k2k3 = phase_train(
+            serve_model, cams, "train_satcull", SATCULL_STEPS, TRAIN_PROFILE_STEPS, errs)
+        torch.cuda.empty_cache()
 
         # the partition engine at full width, after the sort engine's paths:
         # the same checkpoint, its config now naming the engine
@@ -2307,6 +2821,37 @@ def main():
         launches["partition_train"], part = phase_train(serve_model, cams, "partition_train",
                                                         PARTITION_STEPS, 1, errs)
         timings.update({name: part[name] for name in ("radix_pass", "radix_unpass")})
+        torch.cuda.empty_cache()
+        # the gather engine, as the partition engine
+        gather_model = WildGaussians(checkpoint=set_binning(ckpt, "gather"))
+        check(gather_model.config.pallas_binning == "gather", "the checkpoint's binning")
+        launches["gather_serve"], _k1 = phase_serve(
+            gather_model, cams, [(i % len(cams), None) for i in range(GATHER_REQUESTS)],
+            "gather_serve", errs, reference=serve_model)
+        del gather_model
+        torch.cuda.empty_cache()
+        launches["gather_train"], _k2 = phase_train(serve_model, cams, "gather_train",
+                                                    GATHER_STEPS, 1, errs)
+        torch.cuda.empty_cache()
+        # the tiled backend (plain torch, no kernel): requests and steps
+        tiled_model = WildGaussians(checkpoint=set_config(set_binning(ckpt, "sort"),
+                                                          "rasterizer_backend", "tiled"))
+        set_config(ckpt, "rasterizer_backend", "auto")
+        check(tiled_model.config.rasterizer_backend == "tiled", "the checkpoint's backend")
+        # (no profiled request or step: a tiled request issues ~58k
+        # launches, a step ~330k, whose traces take tens of seconds to
+        # minutes to read)
+        launches["tiled"], _k1 = phase_serve(
+            tiled_model, cams, [(i % len(cams), None) for i in range(TILED_REQUESTS)], "tiled", errs,
+            reference=serve_model, profile_requests=0)
+        del tiled_model
+        torch.cuda.empty_cache()
+        launches["tiled_train"], _t = phase_train(serve_model, cams, "tiled_train", TILED_STEPS,
+                                                  0, errs)
+        torch.cuda.empty_cache()
+        # trajectory rendering and the reference checkpoint import
+        launches["trajectory"] = phase_trajectory(serve_model, tmp, errs)
+        launches["reference_import"] = phase_reference_import(serve_model, ckpt, cams, tmp, errs)
         torch.cuda.empty_cache()
         # densify/prune, the opacity reset and capacity growth under each engine
         for path in ("densify", "partition_densify"):

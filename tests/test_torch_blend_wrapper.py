@@ -50,7 +50,7 @@ def test_blend_wrapper_on_cpu():
     # walked counts: T falls to ~2e-2, ~3e-4, then below 1e-4 at the third
     # entry, which is excluded; the empty tile walks nothing
     table, starts, counts = _stack(8)
-    colors, final_t, walked = tblend.blend_forward(table, starts, counts, grid, 1)
+    colors, final_t, walked, _sat = tblend.blend_forward(table, starts, counts, grid, 1)
     assert int(walked[0]) == 3 and int(walked[1]) == 0
     assert torch.all(final_t[0] >= 1e-4) and torch.all(final_t[1] == 1.0)
     np.testing.assert_allclose(colors[0, 0].numpy(),

@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain versions on the card: K1 (the blend
-forward; also on a hand-made table of edge cases, with K4 and P1 held
+forward, its walked counts and its saturation vote; also on a hand-made table of edge cases, with K4 and P1 held
 against it and against their plain versions), K2 (its backward, per gradient row within 2e-3 of the row's
 largest value: the kernel sums each entry over 256 pixels in another order;
 with and without its two abs rows, whose summed rows stay bit for bit
@@ -107,7 +107,7 @@ def _check_k2(table, tile_starts, tile_counts, grid, n_passes, dev):
     gt_eff (summing to gte) its two abs rows as well, and its summed rows
     bit for bit those without them. Returns the rows without them."""
     g = torch.Generator(device=dev).manual_seed(n_passes)
-    colors, final_t, _ = tblend.blend_forward(table, tile_starts, tile_counts, grid, n_passes)
+    colors, final_t = tblend.blend_forward(table, tile_starts, tile_counts, grid, n_passes)[:2]
     gcol = torch.randn(colors.shape, generator=g, device=dev) * 1e-3
     gte = torch.randn(final_t.shape, generator=g, device=dev) * 1e-3
     args = (table, tile_starts, tile_counts, grid, n_passes, gcol, gte, colors,
@@ -204,8 +204,8 @@ def _check_fwd_edges(dev):
     for n_passes in (1, 2, 3):
         rgb = rng.uniform(0, 1, (3 * n_passes, geo.shape[1])).astype(np.float32)
         table = torch.tensor(np.concatenate([geo, rgb]), device=dev)
-        kc, kt, kw = tblend.blend_forward(table, st, ct, grid, n_passes)
-        pc, pt, pw = tblend.blend_forward_plain(table, st, ct, grid, n_passes)
+        kc, kt, kw, ks = tblend.blend_forward(table, st, ct, grid, n_passes)
+        pc, pt, pw, ps = tblend.blend_forward_plain(table, st, ct, grid, n_passes)
         zero = tstatic.blend_forward_planar(table, st, ct, grid, n_passes,
                                             torch.zeros(3, device=dev))
         bg = torch.tensor([0.3, 0.6, 0.9], device=dev)
@@ -218,6 +218,11 @@ def _check_fwd_edges(dev):
         assert walked == pw.tolist(), (walked, pw.tolist())
         assert 3 < walked[0] < 200 and 256 < walked[3] < 400, walked
         assert walked[1:3] + walked[4:] == [30, 0, 5, 300], walked
+        # the saturation vote: tiles 0 and 3 stop every pixel; tile 2 has no
+        # entries, and tiles 4 and 5 stop none
+        sat = ks.tolist()
+        assert sat == ps.tolist() and sat[0] == sat[3] == 1 and sat[2] == sat[4] == sat[5] == 0, \
+            (sat, ps.tolist())
         assert (kt[2] == 1.0).all() and (kc[:, 2] == 0).all()           # no entries
         plain_planar = tstatic.blend_forward_planar_plain(table, st, ct, grid, n_passes, bg)
         assert (planar - plain_planar).abs().max().item() <= 1e-4
@@ -233,8 +238,8 @@ def _check_fwd_edges(dev):
     one = torch.tensor(np.concatenate([geo[:, 1:2], np.ones((3, 1), np.float32)]), device=dev)
     one_st = torch.tensor([0, 1, 1, 1, 1, 1, 1], dtype=torch.int32, device=dev)
     one_ct = torch.tensor([1, 0, 0, 0, 0, 0], dtype=torch.int32, device=dev)
-    kc, kt, _kw = tblend.blend_forward(one, one_st, one_ct, grid, 1)
-    pc, pt, _pw = tblend.blend_forward_plain(one, one_st, one_ct, grid, 1)
+    kc, kt = tblend.blend_forward(one, one_st, one_ct, grid, 1)[:2]
+    pc, pt = tblend.blend_forward_plain(one, one_st, one_ct, grid, 1)[:2]
     torch.cuda.synchronize()
     used = (kt[0] < 1.0).nonzero().flatten().tolist()
     assert used == (pt[0] < 1.0).nonzero().flatten().tolist() and 2 * 16 + 7 in used, used
@@ -316,16 +321,19 @@ def test_blend_kernel_matches_plain_on_card():
     for n_passes in (1, 2, 3):
         st, grid = _surfel_table(dev, 100_000, 256, 192, n_passes)   # ~2 Gaussians per pixel
         before = tblend.blend_forward.launches
-        kc, kt, kw = tblend.blend_forward(st.table, st.tile_starts, st.tile_counts, grid, n_passes)
+        kc, kt, kw, ks = tblend.blend_forward(st.table, st.tile_starts, st.tile_counts, grid,
+                                              n_passes)
         torch.cuda.synchronize()
         assert tblend.blend_forward.launches == before + 1
         assert kc.device.type == "cuda"
-        pc, pt, pw = tblend.blend_forward_plain(st.table, st.tile_starts, st.tile_counts,
-                                                grid, n_passes)
+        pc, pt, pw, ps = tblend.blend_forward_plain(st.table, st.tile_starts, st.tile_counts,
+                                                    grid, n_passes)
         err = torch.maximum((kc - pc).abs().amax(dim=(0, 3)), (kt - pt).abs())
         assert err.max().item() <= 5e-3, f"{n_passes} passes"
         assert (err > 1e-4).float().mean().item() <= 1e-4, f"{n_passes} passes"
         assert torch.all(kw <= st.tile_counts) and int((kw != pw).sum()) <= 2
+        # the saturation vote: equal wherever the walked counts are
+        assert torch.equal(ks[kw == pw], ps[kw == pw])
         assert int((kw < st.tile_counts).sum()) > 0    # some tiles exit early
         _check_planar(st, grid, n_passes, dev, (kc, kt))
         _check_backward(st, grid, n_passes, dev)

@@ -11,8 +11,13 @@ own preprocess inside `render_internal`):
     arrays, as the sort engine's is its `binning="sort"` count; at a small
     big pool the two engines' counts differ;
   - `pallas_binning: gather`, `saturation_culling: true` and
-    `rasterizer_backend: tiled` raise, from a config override and from a
-    checkpoint's config.yaml;
+    `rasterizer_backend: tiled` construct, from a config override and from
+    a checkpoint's config.yaml, and reach the path they name: the gather
+    engine's table, the trainer's saturation maps (a render serves without
+    a map, and gives each tile's saturation depth), the tiled blend (no
+    blend-kernel table); the loaded checkpoint renders the partition
+    engine's image within the partition engine test's tolerance (1e-5),
+    under the tiled backend within 1e-4; an unknown binning raises;
   - with overflow 0, one train_iteration under "partition" matches one
     under "sort" from the same init (metrics rtol 1e-4; every gradient atol
     5e-3 max|g| + rtol 5e-2, the tolerances tests/test_torch_train_step.py
@@ -132,20 +137,40 @@ def _check_render_path(model, monkeypatch):
     assert counts["partition", 0.02] != counts["sort", 0.02]
 
 
-def _check_refusals(tmp_path, ckpt):
-    for key, value, yaml_value in (("pallas_binning", "gather", "gather"),
-                                   ("saturation_culling", True, "true"),
-                                   ("rasterizer_backend", "tiled", "tiled")):
-        with pytest.raises(NotImplementedError, match=key):
-            WildGaussians(config_overrides=dict(OVERRIDES, **{key: value}), device="cpu")
-        bad = os.path.join(str(tmp_path), f"bad_{key}")
-        shutil.copytree(ckpt, bad)
-        with open(os.path.join(bad, "config.yaml"), "a", encoding="utf8") as f:
+def _check_refusals(tmp_path, ckpt, ds, reference):
+    """The three settings the port once refused now construct and reach
+    their paths (`reference`: the partition engine's render of the
+    checkpoint's first training camera)."""
+    cam = ds["cameras"][0]
+    # the checkpoint's config.yaml names the partition engine; the cull
+    # runs on the sort engine's binning
+    for key, value, yaml_value, tol in (
+            ("pallas_binning", "gather", "gather", TOL_IMG),
+            ("saturation_culling", True, "true\npallas_binning: sort", TOL_IMG),
+            ("rasterizer_backend", "tiled", "tiled", 1e-4)):
+        trainer = WildGaussians(train_dataset=ds, config_overrides=dict(OVERRIDES, **{key: value}),
+                                device="cpu")
+        assert getattr(trainer.config, key) == value
+        assert trainer._use_satcull() == (key == "saturation_culling")
+        path = os.path.join(str(tmp_path), f"with_{key}")
+        shutil.copytree(ckpt, path)
+        with open(os.path.join(path, "config.yaml"), "a", encoding="utf8") as f:
             f.write(f"{key}: {yaml_value}\n")
-        with pytest.raises(NotImplementedError, match=key):
-            WildGaussians(checkpoint=bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="_make_gather_blend_vjp"):
-        tblend.check_binning("gather")
+        loaded = WildGaussians(checkpoint=path, device="cpu")
+        assert getattr(loaded.config, key) == value
+        pkg = loaded.render_pkg(cam)
+        if key == "pallas_binning":
+            assert "gid" in pkg.blend and pkg.sat_depth is None
+        elif key == "saturation_culling":
+            assert "vis_count" in pkg.blend and pkg.sat_depth.shape == (12,)
+        else:
+            assert pkg.blend == {} and pkg.sat_depth is None
+        image = loaded.render(cam)
+        for k in ("color", "accumulation"):
+            np.testing.assert_allclose(image[k], reference[k], atol=tol, rtol=0,
+                                       err_msg=f"{key}: {k}")
+    with pytest.raises(ValueError, match="pallas_binning"):
+        tblend.check_binning("bogus")
 
 
 def _with_binning(ckpt, tmp_path, binning):
@@ -217,4 +242,4 @@ def test_partition_binning_is_honoured(monkeypatch, tmp_path):
         assert images["sort"][key].max() > 0
         np.testing.assert_allclose(images["partition"][key], images["sort"][key], atol=TOL_IMG,
                                    rtol=0, err_msg=key)
-    _check_refusals(tmp_path, ckpt)
+    _check_refusals(tmp_path, ckpt, ds, images["partition"])

@@ -1,9 +1,11 @@
 """The port's public rasterizer API against the JAX package's, on the CPU,
 on the same numpy inputs: `rasterize_gaussians` on its three backends
 (forward values and the gradients of means, scales, rotations, opacities,
-colors and the abs hook), `rasterize_pallas`, `mark_visible`, the public
-`overflow_count` (sort, partition and tiled) and `GaussianRasterizer`
-against the JAX adapter (SH degree 3 colors, the means2D hook).
+colors and the abs hook), `rasterize_pallas`, the pallas backend's gather
+engine against its partition engine (the same raw-cell binning: images
+within 1e-5, equal overflow), `mark_visible`, the public `overflow_count`
+(sort, partition and tiled) and `GaussianRasterizer` against the JAX
+adapter (SH degree 3 colors, the means2D hook).
 
 Tolerances:
   - "tiled" and "reference": the same f32 arithmetic on both sides, summed
@@ -215,8 +217,15 @@ def test_raster_api_matches_jax():
         grid=make_grid(W, H), max_tiles_per_gaussian=D_MAX, d_small=D_SMALL)
     np.testing.assert_array_equal(color.numpy(), outs["pallas"].color.detach().numpy())
     np.testing.assert_array_equal(final_t.numpy(), outs["pallas"].final_T.detach().numpy())
-    with pytest.raises(NotImplementedError):
-        trast.rasterize_gaussians(*[torch.tensor(scene[k]) for k in _ARGS], tcam, W, H,
-                                  kernel_size=0.1, backend="pallas", binning="gather")
+    # the gather engine renders the partition engine's image (both bin raw
+    # rect cells), within the partition engine test's 1e-5
+    by_engine = {b: trast.rasterize_gaussians(*[torch.tensor(scene[k]) for k in _ARGS], tcam, W,
+                                              H, kernel_size=0.1, backend="pallas", binning=b)
+                 for b in ("gather", "partition")}
+    for field in ("color", "final_T"):
+        np.testing.assert_allclose(getattr(by_engine["gather"], field).detach().numpy(),
+                                   getattr(by_engine["partition"], field).detach().numpy(),
+                                   atol=1e-5, rtol=0, err_msg=field)
+    assert int(by_engine["gather"].overflow) == int(by_engine["partition"].overflow)
     _check_overflow(scene, jcam, tcam)
     _check_adapter(scene, jcam, tcam, target, rng)

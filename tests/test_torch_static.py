@@ -114,7 +114,7 @@ def test_static_path_matches_jax():
     bg_t = torch.tensor(bg)
     planar = tstatic.blend_forward_planar_plain(sb.table, sb.tile_starts, sb.tile_counts, grid,
                                                 1, bg_t)
-    colors, ft, _walked = tblend.blend_forward_plain(sb.table, sb.tile_starts, sb.tile_counts,
+    colors, ft, _walked, _sat = tblend.blend_forward_plain(sb.table, sb.tile_starts, sb.tile_counts,
                                                      grid, 1)
     assert planar.shape == (1, 4, grid.num_tiles, 256)
     np.testing.assert_array_equal(planar[0, 3].numpy(), ft.numpy())

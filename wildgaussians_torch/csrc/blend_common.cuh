@@ -153,9 +153,10 @@ struct WalkSmem {
 };
 
 struct WalkEnd {
-  float T;       // the pixel's transmittance after its last contributing entry
-  int walked;    // entries the tile needed: up to and including the last
-                 // pixel's crossing entry if every pixel stopped, else count
+  float T;         // the pixel's transmittance after its last contributing entry
+  int walked;      // entries the tile needed: up to and including the last
+                   // pixel's crossing entry if every pixel stopped, else count
+  bool saturated;  // every pixel of the tile stopped (the block's exit vote)
 };
 
 // Walks tile t (of a grid grid_x tiles wide) over its entries [start, start +
@@ -254,7 +255,7 @@ __device__ __forceinline__ WalkEnd walk_tile(const float* __restrict__ table,
 
   if (all_done) atomicMax(&sm.last_stop, stop_at);
   __syncthreads();
-  return WalkEnd{T, all_done ? sm.last_stop + 1 : count};
+  return WalkEnd{T, all_done ? sm.last_stop + 1 : count, all_done};
 }
 
 }  // namespace wg

@@ -33,9 +33,12 @@
 // 96 bytes of the interleaved [256, 3]; the staged copy writes each pass's
 // 3 KB as whole lines).
 //
-// Outputs: colors [NP, T, 256, 3], final_t [T, 256], and walked [T], the
+// Outputs: colors [NP, T, 256, 3], final_t [T, 256], walked [T], the
 // number of entries the tile needed: up to and including the last pixel's
-// crossing entry if every pixel stopped, else `count`. `order` [T] is a
+// crossing entry if every pixel stopped, else `count`, and saturated [T], 1
+// if every pixel of the tile stopped, else 0 (the TPU kernel's exit
+// telemetry: `walked == count` alone cannot tell a tile that never
+// saturated from one that saturated on its last entry). `order` [T] is a
 // permutation of the tiles, the order in which blocks take them.
 //
 // The launch goes on the caller's stream; the kernel allocates nothing and
@@ -53,7 +56,7 @@ blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
                  const int* __restrict__ starts, const int* __restrict__ counts,
                  const int* __restrict__ order, int grid_x, int num_tiles,
                  float* __restrict__ colors, float* __restrict__ final_t,
-                 int* __restrict__ walked) {
+                 int* __restrict__ walked, int* __restrict__ saturated) {
   constexpr int W = 6 + 3 * NP;
   constexpr int kOut = kPix * 3;   // floats of one pass's colors of a tile
   static_assert(sizeof(wg::WalkSmem<W>::ent) >= NP * kOut * sizeof(float),
@@ -75,7 +78,10 @@ blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
         }
       });
   const int pix = wg::tile_pixel();
-  if (p == 0) walked[t] = end.walked;
+  if (p == 0) {
+    walked[t] = end.walked;
+    saturated[t] = end.saturated ? 1 : 0;
+  }
   final_t[static_cast<long long>(t) * kPix + pix] = end.T;
 
   // the walk's last barrier has freed the entry buffers
@@ -99,22 +105,25 @@ blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
 extern "C" int wg_blend_fwd(const float* table, long long row_stride,
                             const int* starts, const int* counts, const int* order,
                             int num_tiles, int grid_x, int n_passes,
-                            float* colors, float* final_t, int* walked,
+                            float* colors, float* final_t, int* walked, int* saturated,
                             void* stream) {
   if (num_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_passes) {
     case 1:
       blend_fwd_kernel<1><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked,
+          saturated);
       break;
     case 2:
       blend_fwd_kernel<2><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked,
+          saturated);
       break;
     case 3:
       blend_fwd_kernel<3><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked,
+          saturated);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,9 +1,10 @@
 """Metrics, evaluation protocols, prediction rendering and archiving.
 
-The port's copy of `wildgaussians_tpu/evaluation.py` without trajectory
+The port's copy of `wildgaussians_tpu/evaluation.py`, with trajectory
 rendering (`render_frames`, `trajectory_get_cameras`,
-`trajectory_get_embeddings`; not ported yet). Metrics stay numpy on the
-host: SSIM matches dm_pix (valid-mode separable Gaussian, variance floors,
+`trajectory_get_embeddings`: frames to a directory or a .tar.gz, video
+only where `mediapy` is installed, depth frames only where `matplotlib`
+is). Metrics stay numpy on the host: SSIM matches dm_pix (valid-mode separable Gaussian, variance floors,
 covariance clipping), PSNR, MSE and MAE clip to [0, 1] first, LPIPS runs
 the torch trunks on the CPU when their weights are on disk and is NaN (with
 one warning) when they are not, and the results JSON keeps the
@@ -27,11 +28,13 @@ import numpy as np
 
 from .datasets import dataset_index_select, new_dataset
 from .spans import span
-from .types import Cameras, Dataset, EvaluationProtocol, Method, RenderOutput
+from .types import (Cameras, Dataset, EvaluationProtocol, Literal, Method, RenderOutput,
+                    Trajectory, camera_model_to_int, new_cameras)
 from .utils import (convert_image_dtype, image_to_srgb, open_any_directory, read_image,
                     save_depth, save_image, serialize_nb_info, visualize_depth)
 
 logger = logging.getLogger(__name__)
+OutputType = Literal["color", "depth"]
 
 
 def _utc_now() -> str:
@@ -414,6 +417,105 @@ def render_all_images(method: Method, dataset: Dataset, output: str, *,
                 frame = evaluation_protocol.render(method, dataset_index_select(dataset, [i]))
             yield frame
     yield from save_predictions(output, frames(), dataset=dataset, nb_info=info)
+
+
+def render_frames(method: Method, cameras: Cameras, output: Union[str, Path],
+                  fps: float, embeddings: Optional[List[np.ndarray]] = None,
+                  description: str = "rendering frames",
+                  output_type: OutputType = "color",
+                  nb_info: Optional[dict] = None) -> None:
+    """Render a camera trajectory to PNG frames `00000.png`, ... in a
+    directory or a .tar.gz, or to a video (.mp4 or .gif, which needs
+    `mediapy`), each frame with its embedding from `embeddings` (or the
+    method's default). `output_type` "depth" writes colormapped depth (which
+    needs `matplotlib`) where the method's render gives depth; as in the
+    JAX package, the render is asked for no extra outputs, so
+    `WildGaussians` frames are color only."""
+    del description
+    output = str(output)
+    assert cameras.image_sizes is not None
+    info = nb_info or {}
+
+    def frames(allow_alpha=True):
+        for i, cam in enumerate(cameras):
+            with span("frame_render"):
+                pred = method.render(cam, options={
+                    "embedding": embeddings[i] if embeddings is not None else None})
+            if output_type == "color":
+                yield image_to_srgb(pred["color"], np.uint8, color_space="srgb",
+                                    allow_alpha=allow_alpha,
+                                    background_color=info.get("background_color"))
+            elif output_type == "depth":
+                assert "depth" in pred, "Method does not output depth"
+                nf = cameras.nears_fars[i] if cameras.nears_fars is not None else None
+                yield convert_image_dtype(
+                    visualize_depth(pred["depth"], near_far=nf,
+                                    expected_scale=info.get("expected_scene_scale")),
+                    np.uint8)
+            else:
+                raise RuntimeError(f"Output type {output_type} is not supported.")
+
+    if output.endswith(".mp4") or output.endswith(".gif"):
+        try:
+            import mediapy
+        except ImportError as e:
+            raise RuntimeError("mediapy is required for video output") from e
+        w, h = cameras.image_sizes[0]
+        codec = "gif" if output.endswith(".gif") else "h264"
+        with mediapy.VideoWriter(output, (h, w), fps=fps, codec=codec) as vw:
+            for frame in frames(allow_alpha=False):
+                vw.add_image(frame)
+        return
+    with PredictionWriter.open(output) as writer:
+        for i, frame in enumerate(frames()):
+            with span("png_encode"), writer.file(f"{i:05d}.png") as f:
+                save_image(f, frame)
+
+
+# ---------------------------------------------------------------------------
+# trajectories
+# ---------------------------------------------------------------------------
+
+def trajectory_get_cameras(trajectory: Trajectory) -> Cameras:
+    """The camera batch of a viewer trajectory (pinhole only)."""
+    if trajectory["camera_model"] != "pinhole":
+        raise NotImplementedError("Only pinhole camera model is supported")
+    frames = trajectory["frames"]
+    n = len(frames)
+    return new_cameras(
+        poses=np.stack([f["pose"] for f in frames]),
+        intrinsics=np.stack([f["intrinsics"] for f in frames]),
+        camera_models=np.full((n,), camera_model_to_int(trajectory["camera_model"]), np.int32),
+        image_sizes=np.tile(np.array(trajectory["image_size"], np.int32), (n, 1)),
+        distortion_parameters=np.zeros((n, 0), np.float32),
+        nears_fars=None, metadata=None)
+
+
+def trajectory_get_embeddings(method: Method,
+                              trajectory: Trajectory) -> Optional[List[np.ndarray]]:
+    """Per-frame appearance embeddings: each frame blends the trajectory's
+    appearance anchors (an embedding, or a training image's) by its
+    `appearance_weights`. None without anchors or without weights."""
+    anchors = []
+    for appearance in trajectory.get("appearances") or []:
+        if appearance.get("embedding") is not None:
+            anchors.append(appearance["embedding"])
+        elif appearance.get("embedding_train_index") is not None:
+            anchors.append(method.get_train_embedding(appearance["embedding_train_index"]))
+        else:
+            anchors.append(None)
+    have_anchor = [a is not None for a in anchors]
+    if not any(have_anchor):
+        return None
+    if not all(have_anchor):
+        raise ValueError("Either all embeddings must be provided or all must be missing")
+    have_weights = [f.get("appearance_weights") is not None for f in trajectory["frames"]]
+    if not any(have_weights):
+        return None
+    if not all(have_weights):
+        raise ValueError("Either all appearance weights must be provided or all must be missing")
+    anchor_mat = np.stack(anchors)
+    return [f["appearance_weights"] @ anchor_mat for f in trajectory["frames"]]
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,14 @@
 Counterpart of `render_internal` in `wildgaussians_tpu/models/renderer.py`:
 builds the camera on the device, evaluates SH colors, optionally tones them
 through the appearance MLP, and blends up to three color passes (raw /
-toned / depth) over one shared preprocess and binning (the JAX package's
-pallas backend with pack16 off: the sort engine, or the partition engine
-with `pallas_binning: partition`). Differentiable: with grad enabled the
-blend runs its backward kernels, and the two zero hooks of training receive
-the gradients of the densification statistics.
+toned / depth) over one shared preprocess and binning. `rasterizer_backend`
+`pallas` or `auto` runs the JAX package's pallas backend with pack16 off:
+the sort engine (with the saturation cull under a map, `sat_super`), or the
+partition or gather engine (`pallas_binning: partition` or `gather`);
+`tiled` runs its tiled backend: `bin_gaussians` with `depth_sort_mode` and
+the plain-torch `rasterize_tiled` once per pass. Differentiable: with grad
+enabled the blend runs its backward, and the two zero hooks of training
+receive the gradients of the densification statistics.
 """
 from typing import Dict, NamedTuple, Optional
 
@@ -15,11 +18,12 @@ import torch
 
 from ..cameras import make_camera_params_torch
 from ..config import Config
+from ..ops.binning import bin_gaussians
 from ..ops.blend import rasterize_multi
 from ..ops.gaussians import compute_cov3d, preprocess
 from ..ops.partition_engine import engine_d_small
 from ..ops.rasterize import engine_overflow_count
-from ..ops.rasterize_tiled import make_grid
+from ..ops.rasterize_tiled import make_grid, rasterize_tiled
 from ..ops.sh import eval_sh_switch
 from ..spans import span
 from .appearance import AppearanceMLP
@@ -34,7 +38,10 @@ class RenderPkg(NamedTuple):
     num_rendered: torch.Tensor      # sum of (capped) tile rects
     overflow: torch.Tensor          # truncated contributions
     max_tiles: torch.Tensor         # largest raw tile rect
-    blend: Dict[str, torch.Tensor]  # the blend kernel's inputs and walked counts
+    blend: Dict[str, torch.Tensor]  # the blend kernel's inputs and walked counts ({} if tiled)
+    # per-tile saturation depths [T] from K1's exit vote (the sort engine
+    # only, else None); `pool_sat_depth` makes a later step's map of them
+    sat_depth: Optional[torch.Tensor] = None
 
 
 def render_internal(gaussians: Dict[str, torch.Tensor],
@@ -52,7 +59,8 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
                     mean2d_hook: Optional[torch.Tensor] = None,
                     absgrad_hook: Optional[torch.Tensor] = None,
                     return_raw: bool = True,
-                    actual_size: Optional[tuple] = None) -> RenderPkg:
+                    actual_size: Optional[tuple] = None,
+                    sat_super: Optional[torch.Tensor] = None) -> RenderPkg:
     """One camera render. `gaussians` are post-activation (get_gaussians).
 
     width/height may be the padded canvas; `actual_size` (w, h) keeps the
@@ -62,7 +70,9 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
     gradient of the means in pixels; `absgrad_hook` [N,2] (zeros) receives
     the fused abs channel in channel 0 (NDC-scaled; channel 1 is 0). With
     appearance on, `return_raw=False` skips the raw pass (the toned image
-    then stands in for `raw_render`, and its final_T gives `accumulation`)."""
+    then stands in for `raw_render`, and its final_T gives `accumulation`).
+    `sat_super` [sy, sx]: the saturation map the sort engine's binning culls
+    under (None: no cull)."""
     max_tiles_per_gaussian = config.max_tiles_per_gaussian
     with span("camera"):
         camera = make_camera_params_torch(pose, intrinsics, width, height)
@@ -126,15 +136,33 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
     else:
         ndc_scale = (0.5 * width, 0.5 * height)
     d_small = config.pallas_d_small
-    if config.pallas_binning == "partition":
+    if config.pallas_binning in ("partition", "gather"):
         d_small = engine_d_small(d_small)   # the engine's floor, for the overflow count too
     big_fraction = config.pallas_big_fraction
-    outs, blend_aux = rasterize_multi(
-        pre.mean2d, pre.conic, pre.opacity, [c for _tag, c in passes],
-        pre.depth, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.valid, bg,
-        grid=grid, max_tiles_per_gaussian=max_tiles_per_gaussian,
-        d_small=d_small, big_fraction=big_fraction, binning=config.pallas_binning,
-        absgrad_hook=absgrad_hook, ndc_scale=ndc_scale)
+    tiled = config.rasterizer_backend not in ("auto", "pallas")
+    if tiled:
+        with span("binning"):
+            binning = bin_gaussians(pre, grid.grid_x, grid.grid_y, max_tiles_per_gaussian,
+                                    sort_mode=config.depth_sort_mode)
+        hook = absgrad_hook if absgrad_hook is not None else torch.zeros(
+            (n, 2), dtype=torch.float32, device=means3d.device)
+        # per-axis channels: pre-scaling the hook scales its gradient by
+        # the NDC factors (d/dh f(h s) = s f'(h s))
+        hook = hook * torch.tensor(ndc_scale, dtype=torch.float32, device=means3d.device)[None]
+        blend_aux = {}
+        with span("tiled_blend"):
+            outs = [rasterize_tiled(pre.mean2d, pre.conic, pre.opacity, c, hook,
+                                    binning.sorted_gidx, binning.tile_starts,
+                                    binning.tile_counts, bg, grid=grid, chunk=256,
+                                    batch_tiles=64)
+                    for _tag, c in passes]
+    else:
+        outs, blend_aux = rasterize_multi(
+            pre.mean2d, pre.conic, pre.opacity, [c for _tag, c in passes],
+            pre.depth, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.valid, bg,
+            grid=grid, max_tiles_per_gaussian=max_tiles_per_gaussian,
+            d_small=d_small, big_fraction=big_fraction, binning=config.pallas_binning,
+            absgrad_hook=absgrad_hook, ndc_scale=ndc_scale, sat_super=sat_super)
     results = dict(zip([tag for tag, _c in passes], outs))
 
     raw_img = results["raw"][0] if "raw" in results else None
@@ -147,12 +175,15 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
              if "depth" in results else None)
 
     num_rendered = torch.sum(torch.clamp_max(pre.tiles_touched, max_tiles_per_gaussian))
-    overflow = engine_overflow_count(pre.tiles_touched, blend_aux.get("vis_count"),
-                              max_tiles_per_gaussian, d_small=d_small,
-                              big_fraction=big_fraction, binning=config.pallas_binning,
-                              valid=pre.valid)
+    if tiled:
+        overflow = torch.sum(pre.tiles_touched > max_tiles_per_gaussian)
+    else:
+        overflow = engine_overflow_count(pre.tiles_touched, blend_aux.get("vis_count"),
+                                         max_tiles_per_gaussian, d_small=d_small,
+                                         big_fraction=big_fraction,
+                                         binning=config.pallas_binning, valid=pre.valid)
     return RenderPkg(render=rendered, raw_render=raw_img,
                      accumulation=accumulation, radii=pre.radius,
                      depth=depth, num_rendered=num_rendered, overflow=overflow,
                      max_tiles=torch.max(torch.where(pre.valid, pre.tiles_touched, 0)),
-                     blend=blend_aux)
+                     blend=blend_aux, sat_depth=blend_aux.get("sat_depth"))

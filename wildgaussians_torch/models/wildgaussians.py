@@ -5,7 +5,9 @@ Counterpart of `wildgaussians_tpu/models/wildgaussians.py`: construction
 (`_build_train_step`'s loss and step, with the uncertainty model of
 `models/uncertainty.py` when `uncertainty_mode` is not "disabled": its loss
 joins the step's, its `loss_mult` weights the L1 and DSSIM terms, its head
-trains under Adam), `train_iteration` with the host schedule after the step
+trains under Adam; with `saturation_culling`, each camera's saturation map
+culls its step's binning and is written back from the step's render),
+`train_iteration` with the host schedule after the step
 (densify/prune, capacity growth, opacity reset, the protected window after
 a reset), `render`, `get_embedding`, `get_train_embedding`,
 `optimize_embedding` (with the uncertainty mask in its "-scaled" modes),
@@ -35,6 +37,8 @@ from ..io.convert import (params_from_numpy, state_to_numpy, train_state_from_nu
 from ..io.ply import save_ply
 from ..ops.blend import check_binning
 from ..ops.knn import mean_knn_dist2
+from ..ops.rasterize_tiled import make_grid
+from ..ops.sort_engine import pool_sat_depth, supertile_shape
 from ..ops.ssim import ssim
 from ..spans import span
 from ..types import (Cameras, Dataset, MethodInfo, ModelInfo, OptimizeEmbeddingOutput,
@@ -68,17 +72,8 @@ def scale_grads(values: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _check_supported(config: Config):
-    """Raise for a configuration that asks for a path the port does not
-    have, rather than run another one in its place."""
-    if config.saturation_culling:
-        raise NotImplementedError(
-            "saturation_culling: the saturation-aware binning cull is not ported yet "
-            "(ROADMAP.md, Queue 1 item 12); set saturation_culling: false")
-    if config.rasterizer_backend not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"rasterizer_backend {config.rasterizer_backend!r}: the port has the pallas "
-            "backend's engines only (pallas_binning: sort or partition); set "
-            "rasterizer_backend: pallas or auto")
+    """Raise for a configuration that names no binning engine, rather than
+    run another one in its place."""
     check_binning(config.pallas_binning)
 
 
@@ -136,6 +131,8 @@ class WildGaussians:
         self.train_cameras: Optional[Cameras] = None
         self.cameras_extent: Optional[float] = None
         self._overflow_streak = 0
+        # (canvas w, h) -> [n_cams, sy, sx] saturation maps (saturation_culling)
+        self._sat_caches: Dict[tuple, torch.Tensor] = {}
         self.mlp: Optional[AppearanceMLP] = None
         # the uncertainty model and its head's parameters (training; a
         # checkpoint loaded to serve builds them at its first "-scaled" fit)
@@ -357,6 +354,25 @@ class WildGaussians:
                              granularity=self._uncertainty.dino.patch_size, device=self.device))
         return cache[camera_id]
 
+    def _use_satcull(self) -> bool:
+        """The saturation cull runs on the pallas backend's sort engine only
+        (`auto` is pallas in the port), as in the JAX package."""
+        config = self.config
+        return (config.saturation_culling and config.rasterizer_backend in ("auto", "pallas")
+                and config.pallas_binning == "sort")
+
+    def _sat_cache_for(self, pad_w: int, pad_h: int) -> torch.Tensor:
+        """The per-camera saturation maps of one canvas, +inf (no cull) until
+        a camera's first step records its tiles' exit depths. Cleared after
+        a densify and after an opacity reset."""
+        cache = self._sat_caches.get((pad_w, pad_h))
+        if cache is None:
+            sy, sx = supertile_shape(make_grid(pad_w, pad_h, 16))
+            cache = torch.full((len(self.train_cameras), sy, sx), torch.inf,
+                               dtype=torch.float32, device=self.device)
+            self._sat_caches[(pad_w, pad_h)] = cache
+        return cache
+
     def _train_step(self, camera_id: int, iteration: int, densify_enabled: bool
                     ) -> Dict[str, torch.Tensor]:
         """One step on one camera: render, loss, backward, densification
@@ -368,6 +384,7 @@ class WildGaussians:
         n = self.params["xyz"].shape[0]
         m2d_hook = torch.zeros((n, 2), device=self.device, requires_grad=True)
         abs_hook = torch.zeros((n, 2), device=self.device, requires_grad=True)
+        sat_cache = self._sat_cache_for(pw, ph) if self._use_satcull() else None
         with span("forward"):
             gaussians = gs.get_gaussians(self.params, self.aux)
             embedding = (self.params["appearance_embeddings"][camera_id]
@@ -376,7 +393,8 @@ class WildGaussians:
                 gaussians, self.params, self.mlp, self.aux.active_sh_degree, self.aux.alive,
                 config, self._poses_dev[camera_id], self._intr_dev[camera_id], pw, ph,
                 embedding=embedding, kernel_size=config.kernel_size,
-                mean2d_hook=m2d_hook, absgrad_hook=abs_hook, actual_size=(aw, ah))
+                mean2d_hook=m2d_hook, absgrad_hook=abs_hook, actual_size=(aw, ah),
+                sat_super=sat_cache[camera_id] if sat_cache is not None else None)
         with span("loss"):
             loss, metrics, new_bn = self._loss(pkg, camera_id, iteration)
         trainable = self._trainable()
@@ -409,6 +427,10 @@ class WildGaussians:
                                                weight_decay=wd)
             if new_bn is not None:
                 self._uncertainty.bn_state = new_bn
+            if sat_cache is not None:
+                # this step's exit depths: the camera's map for its next visit
+                sat_cache[camera_id] = pool_sat_depth(pkg.sat_depth, make_grid(pw, ph, 16),
+                                                      margin=config.saturation_margin)
             metrics["num_rendered"] = pkg.num_rendered
             metrics["overflow"] = pkg.overflow
             metrics["max_tiles"] = pkg.max_tiles
@@ -420,8 +442,9 @@ class WildGaussians:
         densify/prune every `densification_interval` iterations after
         `densify_from_iter` (size pruning once past the first opacity
         reset), grow the capacity when needed and refresh the 3D filter;
-        reset the opacities every `opacity_reset_interval`. Once densifying
-        has stopped, refresh the filter every 100 iterations."""
+        reset the opacities every `opacity_reset_interval`. Each of the two
+        clears the saturation maps. Once densifying has stopped, refresh the
+        filter every 100 iterations."""
         config = self.config
         if densify_enabled:
             if (iteration > config.densify_from_iter
@@ -432,9 +455,11 @@ class WildGaussians:
                         iteration > config.opacity_reset_interval, self._generator)
                 self._maybe_grow_capacity(stats)
                 self._refresh_filter()
+                self._sat_caches.clear()   # the scene changed: learn the maps again
             if iteration % config.opacity_reset_interval == 0:
                 with span("reset_opacity"):
                     self.params, self.adam = gs.reset_opacity(self.params, self.adam, self.aux)
+                self._sat_caches.clear()   # the opacities are reset: nothing saturates
         elif iteration % 100 == 0 and iteration < config.iterations - 100:
             self._refresh_filter()
 

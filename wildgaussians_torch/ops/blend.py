@@ -1,5 +1,6 @@
 """The fused multi-pass tile blend, its backward, and the rasterizer over
-the sort engine or the partition engine (ops/partition_engine.py).
+the sort engine, the partition engine (ops/partition_engine.py) or the
+gather engine (ops/gather_engine.py).
 
 Counterpart of `_make_pallas_blend_vjp` and `rasterize_pallas_multi` in
 `wildgaussians_tpu/ops/rasterize_pallas.py` (single chip, sort engine, exact
@@ -24,7 +25,8 @@ import torch
 from ..spans import span
 from . import _build
 from .rasterize_tiled import ALPHA_MAX, ALPHA_MIN, T_EPS, TileGrid, tiles_to_image
-from .sort_engine import SortEngineSizes, _build_sorted_table, _sort_engine_sizes
+from .sort_engine import (SortEngineSizes, _build_sorted_table, _sort_engine_sizes,
+                          sat_depth_from_walk)
 
 P_PIX = 256  # 16x16 tile
 
@@ -100,14 +102,15 @@ def blend_forward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
     where used; S = inclusive cumsum of l; T_incl = exp(S); an entry
     contributes alpha * T_incl / (1 - alpha) if used and T_incl >= 1e-4
     (monotone in the entry, so this is the sequential stop). Returns
-    (colors [n_passes, T, 256, 3], final_t [T, 256], walked [T] int32), as
-    the kernel does.
+    (colors [n_passes, T, 256, 3], final_t [T, 256], walked [T] int32,
+    saturated [T] int32), as the kernel does.
     """
     dev = table.device
     T = grid.num_tiles
     colors = torch.zeros((n_passes, T, P_PIX, 3), dtype=torch.float32, device=dev)
     final_t = torch.ones((T, P_PIX), dtype=torch.float32, device=dev)
     walked = torch.zeros((T,), dtype=torch.int32, device=dev)
+    saturated = torch.zeros((T,), dtype=torch.int32, device=dev)
     counts = tile_counts.long()
     for b in _plain_batches(table, tile_starts, tile_counts, grid):
         t0, t1 = b.t0, b.t1
@@ -120,19 +123,20 @@ def blend_forward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
             # an f32 matmul; TF32 stays off (torch's default for matmul)
             colors[i, t0:t1] = torch.einsum("bpl,cbl->bpc", w, col)
         final_t[t0:t1] = torch.exp(torch.where(contrib, b.lg, 0.0).sum(-1))
-        walked[t0:t1] = _plain_walked(b, counts)
-    return colors, final_t, walked
+        walked[t0:t1], saturated[t0:t1] = _plain_walked(b, counts)
+    return colors, final_t, walked, saturated
 
 
-def _plain_walked(b: _PlainBatch, counts: torch.Tensor) -> torch.Tensor:
+def _plain_walked(b: _PlainBatch, counts: torch.Tensor):
     """The entries each tile of the batch needs (K1's `walked`): up to and
     including the last pixel's crossing entry if every pixel stops, else
-    all of its entries."""
+    all of its entries; and whether every pixel stops (K1's `saturated`),
+    both int32 [B]."""
     stop = b.use & ~(b.t_inc >= T_EPS)
     all_stopped = stop.any(-1).all(-1)
     first_stop = torch.argmax(stop.to(torch.uint8), dim=-1)              # [B, P]
-    return torch.where(all_stopped, first_stop.max(-1).values + 1,
-                       counts[b.t0:b.t1]).to(torch.int32)
+    walked = torch.where(all_stopped, first_stop.max(-1).values + 1, counts[b.t0:b.t1])
+    return walked.to(torch.int32), all_stopped.to(torch.int32)
 
 
 def blend_walked_plain(table: torch.Tensor, tile_starts: torch.Tensor,
@@ -142,7 +146,7 @@ def blend_walked_plain(table: torch.Tensor, tile_starts: torch.Tensor,
     walked = torch.zeros((grid.num_tiles,), dtype=torch.int32, device=table.device)
     counts = tile_counts.long()
     for b in _plain_batches(table, tile_starts, tile_counts, grid):
-        walked[b.t0:b.t1] = _plain_walked(b, counts)
+        walked[b.t0:b.t1] = _plain_walked(b, counts)[0]
     return walked
 
 
@@ -196,7 +200,8 @@ def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
 
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p]
 
 
 def tile_order(tile_counts: torch.Tensor, num_tiles: int) -> torch.Tensor:
@@ -234,7 +239,10 @@ def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
     r, g, b per pass); tile_starts [T(+1)] and tile_counts [T] int32;
     order [T] int32, the order in which the kernel takes the tiles
     (`tile_order`, computed here when None; it does not change the result).
-    Returns (colors [n_passes, T, 256, 3], final_t [T, 256], walked [T]).
+    Returns (colors [n_passes, T, 256, 3], final_t [T, 256], walked [T],
+    saturated [T]): the entries each tile needed and whether all of its
+    pixels stopped (int32; see blend_walked_plain and
+    `sort_engine.sat_depth_from_walk`).
     A CPU table runs the plain version; a CUDA table launches the kernel and
     adds one to `blend_forward.launches`.
     """
@@ -257,16 +265,18 @@ def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
     colors = torch.empty((n_passes, T, P_PIX, 3), dtype=torch.float32, device=table.device)
     final_t = torch.empty((T, P_PIX), dtype=torch.float32, device=table.device)
     walked = torch.empty((T,), dtype=torch.int32, device=table.device)
+    saturated = torch.empty((T,), dtype=torch.int32, device=table.device)
     fn = _kernel()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
                  tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, n_passes,
-                 colors.data_ptr(), final_t.data_ptr(), walked.data_ptr(), stream)
+                 colors.data_ptr(), final_t.data_ptr(), walked.data_ptr(),
+                 saturated.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed with CUDA error {err}")
     blend_forward.launches += 1
-    return colors, final_t, walked
+    return colors, final_t, walked, saturated
 
 
 blend_forward.launches = 0
@@ -514,35 +524,43 @@ class _DifferentiableBlend(torch.autograd.Function):
 
     Forward: the sort engine and K1 for 1-3 passes; returns the colors with
     the background [n_passes, T, 256, 3] and final_T [T, 256] (shared by
-    the passes). Backward: the cotangent pack, K2, dbg, the un-sort of the
-    per-entry rows to slot order, the cell-major slot sums and K3. Gradients
-    go to mean2d, conic, opacity, the color stack, the abs-gradient hook
-    ([N, 2]: ch0 = sx sum|dmx_pix| + sy sum|dmy_pix|, ch1 = 0) and bg."""
+    the passes), and puts each tile's saturation depth (`sat_depth_from_walk`)
+    in aux["sat_depth"]. `sat_super` [sy, sx] (or None) is the saturation
+    map the binning culls under. Backward: the cotangent pack, K2, dbg, the
+    un-sort of the per-entry rows to slot order, the cell-major slot sums
+    and K3. Gradients go to mean2d, conic, opacity, the color stack, the
+    abs-gradient hook ([N, 2]: ch0 = sx sum|dmx_pix| + sy sum|dmy_pix|, ch1
+    = 0) and bg."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, colors_stack, absgrad_hook, bg,
                 depth, rect_min, rect_max, tiles_touched, valid, grid: TileGrid,
                 max_tiles_per_gaussian: int, d_small: int, big_fraction: float,
-                ndc_scale: Tuple[float, float], aux: Dict[str, torch.Tensor]):
+                ndc_scale: Tuple[float, float], sat_super: Optional[torch.Tensor],
+                aux: Dict[str, torch.Tensor]):
         del absgrad_hook   # its gradient is the fused abs channel
         n, n_passes = mean2d.shape[0], colors_stack.shape[0]
         with span("sort_engine"):
             st = _build_sorted_table(
                 grid, n, max_tiles_per_gaussian, n_passes, d_small, big_fraction,
                 mean2d, conic, opacity, colors_stack, depth, rect_min, rect_max,
-                tiles_touched, valid)
+                tiles_touched, valid, sat_super)
         with span("blend_kernel"):
             # K1 and K2 take the tiles in one order, computed once a step
             order = tile_order(st.tile_counts, grid.num_tiles)
-            colors, final_t, walked = blend_forward(st.table, st.tile_starts, st.tile_counts,
-                                                    grid, n_passes, order=order)
+            colors, final_t, walked, saturated = blend_forward(
+                st.table, st.tile_starts, st.tile_counts, grid, n_passes, order=order)
+        sizes = _sort_engine_sizes(grid, n, max_tiles_per_gaussian, d_small, big_fraction)
+        with span("sat_depth"):
+            sat_depth = sat_depth_from_walk(walked, saturated, st.tile_starts, st.tile_counts,
+                                            st.sorted_key, sizes.depth_bits)
         ctx.save_for_backward(st.table, st.sorted_flat, st.tile_starts, st.tile_counts,
                               st.big_list, colors, final_t, bg, order)
-        ctx.grid, ctx.ndc_scale, ctx.n = grid, ndc_scale, n
-        ctx.sizes = _sort_engine_sizes(grid, n, max_tiles_per_gaussian, d_small, big_fraction)
+        ctx.grid, ctx.ndc_scale, ctx.n, ctx.sizes = grid, ndc_scale, n, sizes
         aux.update(table=st.table, tile_starts=st.tile_starts, tile_counts=st.tile_counts,
-                   walked=walked, vis_count=st.vis_count, big_list=st.big_list,
-                   sorted_flat=st.sorted_flat)
+                   walked=walked, saturated=saturated, sat_depth=sat_depth,
+                   vis_count=st.vis_count, big_list=st.big_list, sorted_flat=st.sorted_flat,
+                   sorted_key=st.sorted_key)
         return colors + final_t[..., None] * bg, final_t
 
     @staticmethod
@@ -571,19 +589,14 @@ class _DifferentiableBlend(torch.autograd.Function):
         dabs = torch.stack([sums[6], torch.zeros_like(sums[6])], dim=-1)
         dcolors = torch.stack([sums[7 + 3 * i:10 + 3 * i].T for i in range(n_passes)])
         return (sums[0:2].T, sums[2:5].T, sums[5], dcolors, dabs, dbg,
-                None, None, None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None, None, None)
 
 
 def check_binning(binning: str):
     """Raise unless `binning` (the config's `pallas_binning`) names an
-    engine the port has."""
-    if binning == "gather":
-        raise NotImplementedError(
-            "pallas_binning 'gather': the gather engine (`_make_gather_blend_vjp`, "
-            "wildgaussians_tpu/ops/rasterize_pallas.py:2567) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 14); use 'sort' or 'partition'")
-    if binning not in ("sort", "partition"):
-        raise ValueError(f"unknown pallas_binning {binning!r}: 'sort' or 'partition'")
+    engine: 'sort', 'partition' or 'gather'."""
+    if binning not in ("sort", "partition", "gather"):
+        raise ValueError(f"unknown pallas_binning {binning!r}: 'sort', 'partition' or 'gather'")
 
 
 def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
@@ -592,48 +605,61 @@ def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
                     max_tiles_per_gaussian: int = 16, d_small: int = 4,
                     big_fraction: float = 0.16, binning: str = "sort",
                     absgrad_hook: Optional[torch.Tensor] = None,
-                    ndc_scale: Tuple[float, float] = (1.0, 1.0)
+                    ndc_scale: Tuple[float, float] = (1.0, 1.0),
+                    sat_super: Optional[torch.Tensor] = None
                     ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Render several color sets over one shared binned geometry.
 
-    binning: "sort" (the sort engine, `_DifferentiableBlend`) or
-    "partition" (the radix partition engine,
-    `partition_engine.PartitionBlend`, with its d_small,
-    `engine_d_small`); "gather" raises.
+    binning: "sort" (the sort engine, `_DifferentiableBlend`), "partition"
+    (the radix partition engine, `partition_engine.PartitionBlend`) or
+    "gather" (`gather_engine.GatherBlend`); the last two bin raw rect cells
+    with d_small floored at 6 (`engine_d_small`).
+
+    sat_super [sy, sx] (the sort engine only): the saturation map
+    (`sort_engine.pool_sat_depth`) under which the binning culls cells that
+    lie at or beyond their supertile's depth; None culls nothing, and a map
+    of +inf gives the same table.
 
     Returns ([(color [H,W,3], final_T [H,W]) per color set], aux): aux
     holds the blend's inputs (`table`, `tile_starts`, `tile_counts`), its
-    per-tile `walked` counts and `big_list`; the sort engine adds its
-    per-Gaussian `vis_count` and slot order `sorted_flat`, the partition
-    engine its whole `entry_table` (key rows first) and the `presort_meta`,
-    `rank_meta` (None without tier 2) and `tile_meta` of its partitions.
-    The sort engine's final_T image is one tensor shared by the passes; the
-    partition engine gives each pass its own (equal values).
+    per-tile `walked` counts and `big_list`; the sort engine adds K1's
+    per-tile `saturated` votes, each tile's saturation depth `sat_depth`
+    [T] (+inf where it did not saturate), its per-Gaussian `vis_count`, slot
+    order `sorted_flat` and sorted keys `sorted_key`; the partition engine its whole `entry_table`
+    (key rows first) and the `presort_meta`, `rank_meta` (None without tier
+    2) and `tile_meta` of its partitions; the gather engine each entry's
+    Gaussian `gid`. The sort engine's final_T image is one tensor shared by
+    the passes; the other engines give each pass its own (equal values).
 
-    Differentiable (K2 and K3 in the backward; K6 too for "partition")
-    wherever grad is enabled; `absgrad_hook` [N, 2] (zeros) then receives
-    the abs-gradient channels scaled by `ndc_scale` = (0.5 W, 0.5 H): the
-    sort engine's fused one in ch0 (sx sum|dmx| + sy sum|dmy| of the summed
-    gradient, ch1 = 0), the partition engine's per-axis ones summed over
-    the passes (ch0 = sum over passes of sx sum|dmx|, ch1 of sy sum|dmy|).
-    Under `no_grad` nothing is kept for a backward."""
+    Differentiable (K2 and K3 in the backward; K6 too for "partition"; K2
+    alone for "gather") wherever grad is enabled; `absgrad_hook` [N, 2]
+    (zeros) then receives the abs-gradient channels scaled by `ndc_scale` =
+    (0.5 W, 0.5 H): the sort engine's fused one in ch0 (sx sum|dmx| + sy
+    sum|dmy| of the summed gradient, ch1 = 0), the other engines' per-axis
+    ones summed over the passes (ch0 = sum over passes of sx sum|dmx|, ch1
+    of sy sum|dmy|). Under `no_grad` nothing is kept for a backward."""
     check_binning(binning)
+    if sat_super is not None and binning != "sort":
+        raise ValueError(f"saturation culling runs on the sort engine only, not {binning!r}")
     if absgrad_hook is None:
         absgrad_hook = torch.zeros((mean2d.shape[0], 2), dtype=torch.float32,
                                    device=mean2d.device)
     aux: Dict[str, torch.Tensor] = {}
-    if binning == "partition":
-        from .partition_engine import PartitionBlend, engine_d_small   # they import this module
-        fn, d_small = PartitionBlend, engine_d_small(d_small)
+    args = (mean2d, conic, opacity, torch.stack(colors_list), absgrad_hook, bg,
+            pre_depth, pre_rect_min, pre_rect_max,
+            torch.clamp_max(pre_tiles_touched, max_tiles_per_gaussian), pre_valid, grid,
+            max_tiles_per_gaussian)
+    if binning == "sort":
+        color, final_t = _DifferentiableBlend.apply(*args, d_small, big_fraction, ndc_scale,
+                                                    sat_super, aux)
     else:
-        fn = _DifferentiableBlend
-    color, final_t = fn.apply(
-        mean2d, conic, opacity, torch.stack(colors_list), absgrad_hook, bg,
-        pre_depth, pre_rect_min, pre_rect_max,
-        torch.clamp_max(pre_tiles_touched, max_tiles_per_gaussian), pre_valid, grid,
-        max_tiles_per_gaussian, d_small, big_fraction, ndc_scale, aux)
+        # they import this module
+        from .gather_engine import GatherBlend
+        from .partition_engine import PartitionBlend, engine_d_small
+        fn = PartitionBlend if binning == "partition" else GatherBlend
+        color, final_t = fn.apply(*args, engine_d_small(d_small), big_fraction, ndc_scale, aux)
     with span("compose"):
-        if final_t.dim() == 3:      # one final_T per pass (the partition engine)
+        if final_t.dim() == 3:      # one final_T per pass (the partition and gather engines)
             images = [(tiles_to_image(color[i], grid), tiles_to_image(final_t[i], grid))
                       for i in range(len(colors_list))]
         else:

@@ -248,8 +248,8 @@ class PartitionBlend(torch.autograd.Function):
         with span("blend_kernel"):
             # K1 and K2 take the tiles in one order, computed once a step
             order = blend.tile_order(pt.tile_counts, grid.num_tiles)
-            colors, final_t, walked = blend.blend_forward(attrs, pt.tile_starts, pt.tile_counts,
-                                                          grid, n_passes, order=order)
+            colors, final_t, walked, _sat = blend.blend_forward(
+                attrs, pt.tile_starts, pt.tile_counts, grid, n_passes, order=order)
         ctx.save_for_backward(pt.table, pt.tile_starts, pt.tile_counts, pt.big_list, colors,
                               final_t, bg, order)
         ctx.metas = (pt.presort, pt.rank, pt.tile)

@@ -4,8 +4,8 @@ Counterpart of `wildgaussians_tpu/ops/rasterize.py`, with its signatures,
 defaults and backend names:
   - "tiled":     the plain torch tiled blend with its hand-derived backward
                  (ops/rasterize_tiled.py, binning ops/binning.py), the default;
-  - "pallas":    the kernels' path (ops/blend.py: the sort or partition
-                 engine, K1-K3, K5, K6). On CUDA tensors it always launches
+  - "pallas":    the kernels' path (ops/blend.py: the sort, partition or
+                 gather engine, K1-K3, K5, K6). On CUDA tensors it always launches
                  the CUDA kernels, and raises if they fail to build or launch;
                  on CPU tensors it runs their plain versions;
   - "reference": the O(N H W) oracle (ops/rasterize_reference.py), for tests.
@@ -51,15 +51,16 @@ def engine_overflow_count(tiles_touched: torch.Tensor, vis_count: Optional[torch
     `partition_engine.engine_d_small`, as the caller passed it to the
     engine). binning "sort": a big Gaussian has more than d_small visible
     cells (vis_count [n], the sort engine's `SortedTable.vis_count`, the
-    visible cells among the first max_tiles_per_gaussian). "partition":
-    more than d_small raw rect cells among the valid Gaussians (valid [n]);
-    vis_count is unused. The JAX package recounts the visible cells here
-    and lets XLA merge that with the engine's own count; eager torch would
-    run the corner cull twice."""
+    visible cells among the first max_tiles_per_gaussian, under the
+    saturation cull when the binning ran with a map). "partition" and
+    "gather": more than d_small raw rect cells among the valid Gaussians
+    (valid [n]); vis_count is unused. The JAX package recounts the visible
+    cells here and lets XLA merge that with the engine's own count; eager
+    torch would run the corner cull twice."""
     overflow = torch.sum(tiles_touched > max_tiles_per_gaussian)
     if max_tiles_per_gaussian > d_small:
         m_cap = max(int(tiles_touched.shape[0] * big_fraction), 8)
-        if binning == "partition":
+        if binning in ("partition", "gather"):
             n_big = torch.sum((tiles_touched > d_small) & valid)
         else:
             n_big = torch.sum(vis_count > d_small)
@@ -74,10 +75,9 @@ def overflow_count(pre: PreprocessOutput, backend: str, max_tiles_per_gaussian: 
     (the JAX package's): (a) Gaussians whose tile rect exceeds
     max_tiles_per_gaussian and, for pallas, (b) big Gaussians beyond the
     big-pool capacity. The sort engine (with a grid) classifies on visible
-    cells, the partition and gather engines on raw rect cells with d_small
-    floored at 6. `sat_super` (saturation culling) is not ported."""
-    if sat_super is not None:
-        raise NotImplementedError("saturation culling is not ported (ROADMAP.md, Queue 1 item 12)")
+    cells, under the saturation cull of `sat_super` when the binning runs
+    with that map, the partition and gather engines on raw rect cells with
+    d_small floored at 6."""
     overflow = torch.sum(pre.tiles_touched > max_tiles_per_gaussian)
     if backend != "pallas":
         return overflow
@@ -87,7 +87,8 @@ def overflow_count(pre: PreprocessOutput, backend: str, max_tiles_per_gaussian: 
             m_cap = max(int(n * big_fraction), 8)
             vis = visible_cell_counts(pre.mean2d, pre.conic, pre.opacity, pre.rect_min,
                                       pre.rect_max, pre.tiles_touched, pre.valid, grid,
-                                      max_tiles_per_gaussian)
+                                      max_tiles_per_gaussian, sat_super=sat_super,
+                                      depth=pre.depth)
             overflow = overflow + torch.clamp_min(torch.sum(vis > d_small) - m_cap, 0)
         return overflow
     d_eff = max(d_small, 6) if binning in ("partition", "gather") else d_small
@@ -128,9 +129,9 @@ def rasterize_gaussians(means3d: torch.Tensor, scales: torch.Tensor, rotations: 
     `mean2d_hook` [N,2] (zeros) the screen-space gradient of the means.
     `pack16` is accepted and has no effect: the port's tables are always
     f32, the JAX package's `pack16=False`. The pallas backend takes
-    `binning` "sort" or "partition" ("gather" raises) and needs 16x16 tiles
-    and chunk 256 (its kernels'); `sort_mode` and `batch_tiles` are the
-    tiled backend's."""
+    `binning` "sort", "partition" or "gather" and needs 16x16 tiles and
+    chunk 256 (its kernels'); `sort_mode` and `batch_tiles` are the tiled
+    backend's."""
     del pack16
     n = means3d.shape[0]
     dev = means3d.device
@@ -180,7 +181,7 @@ def rasterize_gaussians(means3d: torch.Tensor, scales: torch.Tensor, rotations: 
             ndc_scale=(1.0, 1.0) if ndc_scale is None else tuple(float(x) for x in ndc_scale))
         overflow = engine_overflow_count(
             pre.tiles_touched, aux.get("vis_count"), max_tiles_per_gaussian,
-            d_small=engine_d_small(d_small) if binning == "partition" else d_small,
+            d_small=engine_d_small(d_small) if binning in ("partition", "gather") else d_small,
             big_fraction=big_fraction, binning=binning, valid=pre.valid)
     else:
         raise ValueError(f"Unknown rasterizer backend: {backend}")

@@ -29,8 +29,7 @@ def blend_forward_planar_plain(table: torch.Tensor, tile_starts: torch.Tensor,
     """Plain PyTorch K4: K1's plain version (`blend_forward_plain`),
     rearranged to the planar [n_passes, 4, T, 256]: r, g, b with final_T bg
     added, then final_T."""
-    colors, final_t, _walked = blend_forward_plain(table, tile_starts, tile_counts, grid,
-                                                   n_passes)
+    colors, final_t = blend_forward_plain(table, tile_starts, tile_counts, grid, n_passes)[:2]
     rgb = colors.permute(0, 3, 1, 2) + final_t[None, None] * bg[None, :, None, None]
     return torch.cat([rgb, final_t[None, None].expand(n_passes, 1, -1, -1)], dim=1)
 

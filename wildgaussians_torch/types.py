@@ -1,17 +1,17 @@
 """Public contracts of the port: cameras, datasets, render output and the
 method, evaluation-protocol and logger protocols.
 
-The port's own copy of `wildgaussians_tpu/types.py` without the
-`Trajectory*` types (only trajectory rendering uses them, which is not
-ported yet). Containers are numpy-based on the host; the render path moves
-what it needs to the device itself.
+The port's own copy of `wildgaussians_tpu/types.py`, with the `Trajectory*`
+types of trajectory rendering (`evaluation.render_frames`). Containers are
+numpy-based on the host; the render path moves what it needs to the device
+itself.
 """
 import dataclasses
 import typing
 from abc import abstractmethod
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, FrozenSet, Iterable, Iterator, List, Literal, Optional,
-                    Protocol, Sequence, Union, get_args, runtime_checkable)
+                    Protocol, Sequence, Tuple, Union, get_args, runtime_checkable)
 
 import numpy as np
 
@@ -156,6 +156,60 @@ class RenderOutput(TypedDict, total=False):
     color: Required[np.ndarray]  # [h w 3]
     depth: np.ndarray  # [h w]
     accumulation: np.ndarray  # [h w]
+
+
+class TrajectoryFrameAppearance(TypedDict, total=False):
+    embedding: Optional[np.ndarray]
+    embedding_train_index: Optional[int]
+
+
+class TrajectoryFrame(TypedDict, total=True):
+    pose: np.ndarray
+    intrinsics: np.ndarray
+    appearance_weights: NotRequired[np.ndarray]
+
+
+class TrajectoryKeyframe(TypedDict, total=True):
+    pose: np.ndarray
+    fov: Optional[float]
+    transition_duration: NotRequired[Optional[float]]
+    appearance: NotRequired[TrajectoryFrameAppearance]
+
+
+TrajectoryInterpolationType = Literal["kochanek-bartels", "none"]
+
+
+class ImageSetInterpolationSource(TypedDict, total=True):
+    type: Literal["interpolation"]
+    interpolation: Literal["none"]
+    keyframes: List[TrajectoryKeyframe]
+    default_fov: float
+    default_transition_duration: float
+    default_appearance: NotRequired[Optional[TrajectoryFrameAppearance]]
+
+
+class KochanekBartelsInterpolationSource(TypedDict, total=True):
+    type: Literal["interpolation"]
+    interpolation: Literal["kochanek-bartels"]
+    is_cycle: bool
+    tension: float
+    keyframes: List[TrajectoryKeyframe]
+    default_fov: float
+    default_transition_duration: float
+    default_appearance: NotRequired[Optional[TrajectoryFrameAppearance]]
+
+
+TrajectoryInterpolationSource = Union[ImageSetInterpolationSource,
+                                      KochanekBartelsInterpolationSource]
+
+
+class Trajectory(TypedDict, total=True):
+    camera_model: CameraModel
+    image_size: Tuple[int, int]
+    frames: List[TrajectoryFrame]
+    appearances: NotRequired[List[TrajectoryFrameAppearance]]
+    fps: float
+    source: NotRequired[Optional[TrajectoryInterpolationSource]]
 
 
 class OptimizeEmbeddingOutput(TypedDict):
