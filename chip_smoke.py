@@ -37,7 +37,7 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      on every call the card's partition step made; then the saturation
      cull on an occluded scene (tests/test_satcull.py's, scaled up: 5 wall
      layers of 128x128 Gaussians in front of 4,000 far points, opacity
-     0.9): the per-tile
+     0.99, alpha's cap): the per-tile
      saturation depths against the plain walk's (bit for bit) and the
      CPU's binning and blend from the same preprocess arrays, the pooled
      map culls cells and moves the image by at most 5e-3, a +inf map
@@ -120,6 +120,18 @@ the kernels are built for sm_90a). Every phase is fatal on failure:
      grown store. Per step its ms, loss, the densify / reset_opacity /
      grow_capacity spans, stats and capacity; K1-K3 (and K5, K6) held
      against their plain versions on the last step's arguments;
+  8b. "mesh": the multi-GPU paths at one rank, a one-rank NCCL group on a
+     free loopback port (fatal if it cannot form: nothing falls back to
+     one device). "mesh_serve" and "mesh_partition_serve": a warm-up and a
+     timed request of pose 0 under the Gaussian-sharded sort engine and
+     under the tile-sharded partition path, the image against the single
+     device's (bit for bit expected; fatal beyond TOL_PIXEL), K1 (and K5)
+     held on the request's own band calls; "mesh_train" and
+     "mesh_partition_train": MESH_STEPS steps with `shard_gaussian_store`
+     under each engine against the same steps on one device from the same
+     set-up (losses step for step, fatal beyond TOL_METRIC; send_drops 0;
+     times and spans beside the single device's), K1-K3 (and K5, K6) held
+     on the last step's arguments;
   9. "cli" and "cli_nerfw", the training CLI end to end, in process
      (`wildgaussians_torch.train.main`, the shipped configs as they ship,
      uncertainty on (at 200 iterations their warm-up keeps loss_mult off
@@ -187,8 +199,14 @@ SEED = 0
 DEVICE = "cuda"             # the card (store checks; the raster, static and probes scenes)
 CHECK_N, CHECK_W, CHECK_H = 20_000, 512, 384
 FULL_N, FULL_W, FULL_H = 1_500_000, 1280, 720
-# K1 against its plain version: a pixel can differ only where an alpha sits
-# on the 1/255 floor or T on the 1e-4 stop; a T-stop flip moves it < 1e-4
+# K1 against its plain version, split by whether the two stop each pixel
+# at the same entry (blend.blend_stops_plain): such a pixel can differ only
+# where an alpha sits on the 1/255 floor, within TOL_PIXEL on all but
+# TOL_FRAC of the pixels and TOL_MAX on all; a pixel whose stop flips (T
+# at the 1e-4 stop, K1's product against the plain version's log-space
+# sum) by at most the summed weight alpha T of the entries between the two
+# stops (times the largest color), which at alpha's 0.99 cap reaches 1e-2;
+# at most TOL_FRAC of the pixels may flip
 TOL_PIXEL, TOL_FRAC, TOL_MAX = 1e-4, 1e-4, 5e-3
 # the whole path, card vs CPU: the same float ops, but exp/log/matmul round
 # differently, which can flip a corner cull or a depth-key tie
@@ -295,10 +313,9 @@ SAT_WALL, SAT_FAR = 128, 4000
 # the test's walls are at opacity 0.99, alpha's cap, where the entry at
 # which a pixel stops can carry a weight of up to 1e-2 (T before it under
 # 1e-4 / (1 - 0.99)): K1's product and its plain version's log-space sum
-# round T differently, so such a pixel may differ by up to 1e-2 (7.3e-3 on
-# 1 of 196,608 pixels on an H100), past K1's hold (TOL_MAX). At 0.9 the
-# stopping entry's weight stays under 1e-3
-SAT_OPACITY = 0.9
+# round T differently, so a pixel whose stop flips may differ by up to
+# 1e-2, which K1's hold bounds by that weight (check_kernel)
+SAT_OPACITY = 0.99
 # a trajectory frame against the model's render of its camera: within 1/255
 TOL_FRAME = 1.0 / 255.0
 # the densify phase's schedule: iteration 2 densifies (and grows the store),
@@ -306,6 +323,15 @@ TOL_FRAME = 1.0 / 255.0
 # grown store
 DENSIFY_STEPS = 5
 DENSIFY_OVERRIDES = dict(densify_from_iter=1, densification_interval=2, opacity_reset_interval=3)
+# the "mesh" phase: one rank of NCCL on the card (the sharded engines'
+# band code, all-to-all, gathers and reductions at world size 1); its
+# training schedule: iterations 3 and 6 densify (3 grows the store) and
+# reset, 2, 4 and 5 are plain steps, before and after the growth; the last
+# step's kernel arguments are recorded (on the single device too, so that
+# both hold the same references), so steps 4 and 5 are compared
+MESH_STEPS = 6
+MESH_OVERRIDES = dict(uncertainty_mode="disabled", shard_gaussian_store=True,
+                      densify_from_iter=1, densification_interval=3, opacity_reset_interval=3)
 # the rasterizer API, the static viewer path and the probes run at bench.py's
 # knobs: d_max 10, d_small 4 (big fraction 0.16), chunk 256
 RASTER_D_MAX, RASTER_D_SMALL = 10, 4
@@ -374,7 +400,8 @@ def kernels():
                  paths=("serve", "train", "train_uncertainty", "partition_serve",
                         "partition_train", "densify", "partition_densify", "cli", "cli_nerfw",
                         "train_satcull", "gather_serve", "gather_train", "trajectory",
-                        "reference_import", "raster")),
+                        "reference_import", "raster", "mesh_serve", "mesh_partition_serve",
+                        "mesh_train", "mesh_partition_train")),
             dict(name="blend_bwd", route="cuda", source="wildgaussians_torch/csrc/blend_bwd.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:493",
                  also_replaces=["wildgaussians_tpu/ops/rasterize_pallas.py:482",
@@ -382,13 +409,14 @@ def kernels():
                  wrapper=blend.blend_backward, plain=blend.blend_backward_plain,
                  paths=("train", "train_uncertainty", "partition_train", "densify",
                         "partition_densify", "cli", "cli_nerfw", "train_satcull", "gather_train",
-                        "raster")),
+                        "raster", "mesh_train", "mesh_partition_train")),
             dict(name="tier2_merge", route="cuda",
                  source="wildgaussians_torch/csrc/tier2_merge.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:872",
                  wrapper=blend.tier2_merge, plain=blend.tier2_merge_plain,
                  paths=("train", "train_uncertainty", "partition_train", "densify",
-                        "partition_densify", "cli", "cli_nerfw", "train_satcull", "raster")),
+                        "partition_densify", "cli", "cli_nerfw", "train_satcull", "raster",
+                        "mesh_train", "mesh_partition_train")),
             dict(name="blend_fwd_planar", route="cuda",
                  source="wildgaussians_torch/csrc/blend_fwd_planar.cu",
                  replaces="wildgaussians_tpu/ops/rasterize_pallas.py:1472",
@@ -397,12 +425,14 @@ def kernels():
             dict(name="radix_pass", route="cuda", source="wildgaussians_torch/csrc/radix_pass.cu",
                  replaces="wildgaussians_tpu/ops/partition.py:173",
                  wrapper=partition.radix_pass, plain=partition.radix_pass_plain,
-                 paths=("partition_serve", "partition_train", "partition_densify", "raster")),
+                 paths=("partition_serve", "partition_train", "partition_densify", "raster",
+                        "mesh_partition_serve", "mesh_partition_train")),
             dict(name="radix_unpass", route="cuda",
                  source="wildgaussians_torch/csrc/radix_unpass.cu",
                  replaces="wildgaussians_tpu/ops/partition.py:376",
                  wrapper=partition.radix_unpass, plain=partition.radix_unpass_plain,
-                 paths=("partition_train", "partition_densify", "raster")),
+                 paths=("partition_train", "partition_densify", "raster",
+                        "mesh_partition_train")),
             dict(name="probe_cfin", route="cuda", source="wildgaussians_torch/csrc/probe_cfin.cu",
                  replaces="tools/profiles/probe_cfin.py:95",
                  wrapper=probe_cfin.probe_cfin, plain=probe_cfin.probe_cfin_plain,
@@ -458,17 +488,25 @@ def blend_calls(captured, first=False):
     `captured[kernel name]` (those of its last call, or with `first` of its
     first), detached from the autograd graph (the backward gets the
     forward's output final_T, which is part of it), and K3's `sums`, which
-    it updates in place, as a copy."""
+    it updates in place, as a copy. A K1 or K2 call on a band of the grid
+    (a sharded engine's tile_base and num_tiles) keeps them as positional
+    arguments after an `order` of None, as the wrappers and their plain
+    versions take them."""
     from wildgaussians_torch.ops import blend
     stack = contextlib.ExitStack()
     for name, attr in (("blend_fwd", "blend_forward"), ("blend_bwd", "blend_backward"),
                        ("tier2_merge", "tier2_merge")):
-        def record(*args, name=name, order=None):
+        def record(*args, name=name, order=None, **band):
             # the tile order changes no result: the holds and timings call
             # the wrappers without it, and the wrappers compute it
             del order
             if first and name in captured:
                 return
+            if band:
+                # K1: 5 arguments before `order`; K2: 11 (with gte_pass)
+                head = 5 if name == "blend_fwd" else 11
+                args = (args + (None,) * head)[:head] + (
+                    None, band.get("tile_base", 0), band.get("num_tiles"))
             args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
             captured[name] = (args[0].clone(),) + args[1:] if name == "tier2_merge" else args
         stack.enter_context(calls_of(blend, attr, record))
@@ -567,28 +605,55 @@ def make_checkpoint(root, name, n, width, height):
     return write_surfel_checkpoint(os.path.join(root, name), n, width, height, SEED)
 
 
-def compare(kernel_out, plain_out):
-    """(max abs error, pixels over TOL_PIXEL, pixels) over colors and final_T."""
+def pixel_errors(kernel_out, plain_out):
+    """[T, 256]: each pixel's largest |difference| over colors and final_T."""
     kc, kt = kernel_out[:2]
     pc, pt = plain_out[:2]
-    err = torch.maximum((kc - pc).abs().amax(dim=(0, 3)), (kt - pt).abs())   # [T, 256]
-    return float(err.max()), int((err > TOL_PIXEL).sum()), err.numel()
+    return torch.maximum((kc - pc).abs().amax(dim=(0, 3)), (kt - pt).abs())
+
+
+def band_kw(inputs):
+    """{tile_base, num_tiles} of a recorded K1 (8 arguments) or K2 (14) call
+    on a band of the grid (blend_calls), else {}."""
+    tail = {8: inputs[6:8], 14: inputs[12:14]}.get(len(inputs))
+    return {} if tail is None else dict(tile_base=tail[0], num_tiles=tail[1])
 
 
 def check_kernel(k, inputs, label):
+    """K1 against its plain version, the pixels split by whether the two
+    stop them at the same entry (TOL_PIXEL, TOL_FRAC, TOL_MAX above)."""
+    from wildgaussians_torch.ops import blend
     out = k["wrapper"](*inputs)
     plain = k["plain"](*inputs)
     torch.cuda.synchronize()
-    max_err, over, total = compare(out, plain)
+    err = pixel_errors(out, plain)
+    same, flip_w = blend.blend_stops_plain(*inputs[:4], out[1], **band_kw(inputs))
+    total = err.numel()
+    max_same = float(err[same].max()) if bool(same.any()) else 0.0
+    over = int((err[same] > TOL_PIXEL).sum())
+    flipped = int((~same).sum())
+    cmax = max(1.0, float(inputs[0][6:].abs().max())) if inputs[0].shape[1] else 1.0
+    flip_excess = float((err - flip_w * cmax - TOL_PIXEL)[~same].max()) if flipped else 0.0
     walked_diff = int((out[2] != plain[2]).sum())
     saturated = int(out[3].sum())
-    emit({"check": k["name"], "at": label, "max_abs_err": max_err, "pixels_over_1e-4": over,
+    emit({"check": k["name"], "at": label, "max_abs_err": float(err.max()),
+          "max_abs_err_same_stop": max_same, "pixels_over_1e-4_same_stop": over,
+          "pixels_stop_flipped": flipped,
+          "max_flip_weight": float(flip_w[~same].max()) if flipped else 0.0,
+          "max_abs_err_flipped": float(err[~same].max()) if flipped else 0.0,
           "pixels": total, "tiles_walked_differently": walked_diff,
           "tiles_saturated": saturated, "tiles": int(out[3].numel()),
           "saturation_vote_equal": bool(torch.equal(out[3], plain[3]))})
-    check(max_err <= TOL_MAX and over <= TOL_FRAC * total,
-          f"{k['name']} disagrees with its plain version at {label}: max {max_err}, "
-          f"{over} of {total} pixels over {TOL_PIXEL}")
+    check(max_same <= TOL_MAX and over <= TOL_FRAC * total,
+          f"{k['name']} disagrees with its plain version at {label} where both stop at the "
+          f"same entry: max {max_same}, {over} of {total} pixels over {TOL_PIXEL}")
+    check(flipped <= TOL_FRAC * total,
+          f"{k['name']} stops {flipped} of {total} pixels at another entry than its plain "
+          f"version at {label}")
+    check(flip_excess <= 0.0,
+          f"{k['name']} moves a pixel whose stop flips by {flip_excess} more than the weight "
+          f"of the entries between the two stops at {label}")
+    max_err = float(err.max())
     check(torch.equal(out[3], plain[3]),
           f"{k['name']}'s saturation vote differs from its plain version's at {label} on "
           f"{int((out[3] != plain[3]).sum())} tiles")
@@ -1261,7 +1326,7 @@ def launches_per_unit(model, path):
     """Each kernel's launches per request or step of `path`: one, and for
     K5 and K6 one per radix pass of the partition engine."""
     per = {k["name"]: 1 for k in kernels() if path in k["paths"]}
-    if path.startswith("partition"):
+    if "partition" in path:
         sizes = engine_sizes(model)
         for name in ("radix_pass", "radix_unpass"):
             if name in per:
@@ -1363,7 +1428,7 @@ def time_k1(inputs, label):
     ms = time_cuda_ms(lambda: k["wrapper"](*inputs), iters=20)
     plain_ms = time_cuda_ms(lambda: k["plain"](*inputs), iters=3, warmup=1)
     walked = k["wrapper"](*inputs)[2]
-    pairs = blend.blend_pair_counts(*inputs[:4], warp_block=WARP_BLOCK)
+    pairs = blend.blend_pair_counts(*inputs[:4], warp_block=WARP_BLOCK, **band_kw(inputs))
     bound, bound_by, bound_all_pairs = blend_bound_ms(inputs[0], inputs[2], walked, n_passes,
                                                       pairs)
     out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=None,
@@ -1947,6 +2012,182 @@ def phase_densify(serve_model, cams, path, errs):
     return launches
 
 
+def mesh_group():
+    """Join a one-rank NCCL group on a free loopback port (the sharded paths
+    at world size 1 on this card); raises if it cannot form."""
+    import socket
+    from wildgaussians_torch.parallel.multihost import global_tile_mesh, init_multihost
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_multihost(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, local_rank=0)
+    check(torch.distributed.get_backend() == "nccl", "the mesh's group is not NCCL")
+    return global_tile_mesh()
+
+
+def timed_request(model, cam, mesh=None, record=None):
+    """(render_pkg of cam, ms on the host clock, device synchronised), under
+    the mesh when given, the kernel arguments into `record` (captured,
+    radix) when given."""
+    from wildgaussians_torch.parallel.mesh import use_mesh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_mesh(mesh), contextlib.ExitStack() as stack:
+        if record is not None:
+            stack.enter_context(blend_calls(record[0], first=True))
+            stack.enter_context(radix_calls(record[1]))
+        pkg = model.render_pkg(cam)
+    torch.cuda.synchronize()
+    return pkg, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_serve(mesh, model, cams, path, errs):
+    """A request of pose 0 under the mesh (the sharded sort engine, or the
+    tile-sharded partition path for a partition checkpoint) after a
+    warm-up one (NCCL sets its communicator up at the first collective),
+    against the same request without it: the image (bit for bit expected,
+    fatal over TOL_PIXEL), the two requests' times, send_drops (0 at
+    D = 1); K1 (and K5) held on the request's own arguments. Returns its
+    launches."""
+    ks = [k for k in kernels() if path in k["paths"]]
+    timed_request(model, cams[0])
+    single, single_ms = timed_request(model, cams[0])
+    _pkg, warmup_ms = timed_request(model, cams[0], mesh)
+    captured, radix = {}, {}
+    reset_counts(ks)
+    pkg, ms = timed_request(model, cams[0], mesh, (captured, radix))
+    launches = launch_counts(ks)
+    diff = float(torch.maximum((pkg.render - single.render).abs().amax(-1),
+                               (pkg.accumulation - single.accumulation).abs()).max())
+    drops = int(pkg.send_drops)
+    emit({"phase": path, "binning": model.config.pallas_binning, "mesh_ranks": mesh.size,
+          "card": card_line(), "ms": ms, "single_device_ms": single_ms,
+          "warmup_ms": warmup_ms, "max_abs_diff_single_device": diff,
+          "bit_equal": bool(torch.equal(pkg.render, single.render)), "send_drops": drops,
+          "launches": launches})
+    check(diff <= TOL_PIXEL, f"{path}: the image is {diff} off the single-device one")
+    check(drops == 0, f"{path}: {drops} send drops at one rank")
+    label = f"{path}, pose 0 at {FULL_W}x{FULL_H}"
+    errs["blend_fwd"].append(check_kernel(kernel_by_name("blend_fwd"), captured["blend_fwd"],
+                                          label))
+    for name, err in check_radix({k: v for k, v in radix.items() if k == "radix_pass"},
+                                 label).items():
+        errs[name].append(err)
+    return launches
+
+
+def mesh_steps(model, cams, path, mesh, record=None):
+    """MESH_STEPS training steps on the cameras step_camera_id picks, under
+    the mesh when given; per step (ms, loss, spans, send_drops, capacity),
+    the last step's kernel arguments into `record` (captured, radix) and
+    each kernel's launches per step checked (launches_per_unit)."""
+    from wildgaussians_torch.parallel.mesh import use_mesh
+    from wildgaussians_torch.parallel.multihost import step_camera_id
+    from wildgaussians_torch.spans import SpanTimer
+    ks = [k for k in kernels() if path in k["paths"]]
+    rows, launches = [], {k["name"]: 0 for k in ks}
+    for step in range(MESH_STEPS):
+        last = record is not None and step == MESH_STEPS - 1
+        per_step = launches_per_unit(model, path)
+        before = launch_counts(ks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SpanTimer() as timer, use_mesh(mesh), \
+                kernel_calls(*record) if last else contextlib.nullcontext():
+            metrics = model.train_iteration(step, camera_id=step_camera_id(step, len(cams)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ran = {name: c - before[name] for name, c in launch_counts(ks).items()}
+        if mesh is not None:
+            check(ran == per_step, f"{path} step {step} launched {ran}, not {per_step}")
+            for name, c in ran.items():
+                launches[name] += c
+        rows.append({"step": step, "ms": ms, "loss": metrics["loss"], "psnr": metrics["psnr"],
+                     "send_drops": metrics["send_drops"], "overflow": metrics["overflow"],
+                     "capacity": int(model.aux.alive.shape[0]),
+                     "span_ms": {k: v[0] for k, v in timer.ms().items()}})
+        check(np.isfinite(metrics["loss"]), f"{path}: loss at step {step}")
+    return rows, launches
+
+
+def mesh_train(mesh, serve_model, cams, path, errs):
+    """MESH_STEPS training steps with `shard_gaussian_store` under the mesh
+    (the sort engine's sharded path, or the partition engine's tile-sharded
+    one), from phase 6's set-up with MESH_OVERRIDES, against the same steps
+    on one device without the mesh from the same set-up: per-step losses
+    (fatal beyond TOL_METRIC, relative), send_drops (0, fatal), each step's
+    time and spans beside the single device's; K1-K3 (and K5, K6) held on
+    the last mesh step's arguments. Returns the mesh steps' launches."""
+    from wildgaussians_torch import WildGaussians
+    from wildgaussians_torch.config import load_config_yaml
+    from wildgaussians_torch.models import wildgaussians as trainer
+    binning = "partition" if "partition" in path else "sort"
+    ds, _xyz = full_training_set(serve_model, cams)
+    n_live = live_count(ds, load_config_yaml(os.path.join(trainer._CONFIG_DIR, "default.yml")))
+    overrides = dict(MESH_OVERRIDES, pallas_binning=binning,
+                     initial_capacity=(n_live + 255) // 256 * 256)
+    single = WildGaussians(train_dataset=ds, config_overrides=overrides)
+    single_rows, _l = mesh_steps(single, cams, path, None, ({}, {}))
+    del single
+    torch.cuda.empty_cache()
+    model = WildGaussians(train_dataset=ds, config_overrides=overrides)
+    captured, radix = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    rows, launches = mesh_steps(model, cams, path, mesh, (captured, radix))
+    rel = [abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-12)
+           for a, b in zip(rows, single_rows)]
+    plain = (3, 4)      # iterations 4 and 5: plain steps on the grown store
+    emit({"phase": path, "binning": binning, "mesh_ranks": mesh.size, "card": card_line(),
+          "overrides": overrides, "steps": rows, "single_device_steps": single_rows,
+          "loss_rel_diff": rel, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "slots_per_rank": int(model.aux.alive.shape[0]),
+          "plain_step_ms": float(np.mean([rows[i]["ms"] for i in plain])),
+          "single_device_plain_step_ms": float(np.mean([single_rows[i]["ms"] for i in plain])),
+          "plain_step_span_ms": {k: float(np.mean([rows[i]["span_ms"].get(k, 0.0)
+                                                   for i in plain]))
+                                 for k in rows[plain[0]]["span_ms"]},
+          "single_device_plain_step_span_ms": {
+              k: float(np.mean([single_rows[i]["span_ms"].get(k, 0.0) for i in plain]))
+              for k in single_rows[plain[0]]["span_ms"]}})
+    check(max(rel) <= TOL_METRIC, f"{path}: the losses are {rel} off the single device's")
+    check(all(r["send_drops"] == 0 for r in rows), f"{path}: send drops at one rank")
+    check(rows[2]["capacity"] > rows[1]["capacity"], f"{path}: iteration 3 did not grow the store")
+    label = (f"{path} step {MESH_STEPS} at {FULL_W}x{FULL_H}, sharded store of "
+             f"{int(model.aux.alive.shape[0])} slots")
+    stages_of = partition_stages(engine_sizes(model)) if binning == "partition" else None
+    hold_step(captured, radix, stages_of, label, errs)
+    del model, captured, radix
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mesh(serve_model, ckpt, cams, errs):
+    """The multi-GPU paths at world size 1: a one-rank NCCL group on the
+    card (fatal if it cannot form: nothing falls back to the single-device
+    path), a request under the sharded sort engine and under the
+    tile-sharded partition path ("mesh_serve", "mesh_partition_serve"), and
+    MESH_STEPS training steps with the sharded store under each
+    ("mesh_train", "mesh_partition_train"). Returns each path's launches."""
+    from wildgaussians_torch import WildGaussians
+    mesh = mesh_group()
+    launches = {}
+    try:
+        for path, binning in (("mesh_serve", "sort"), ("mesh_partition_serve", "partition")):
+            # a model of its own: under the mesh its store shards (the
+            # config's shard_gaussian_store), and a sharded store serves
+            # only under that mesh
+            model = WildGaussians(checkpoint=set_binning(ckpt, binning))
+            launches[path] = mesh_serve(mesh, model, cams, path, errs)
+            del model
+            torch.cuda.empty_cache()
+        set_binning(ckpt, "sort")
+        for path in ("mesh_train", "mesh_partition_train"):
+            launches[path] = mesh_train(mesh, serve_model, cams, path, errs)
+    finally:
+        torch.distributed.destroy_process_group()
+    return launches
+
+
 def cli_poses(n):
     """n camera-to-world poses on a loop around the surfel scene's identity
     camera (the serving poses' range of yaw and offsets)."""
@@ -2327,7 +2568,7 @@ def hold_step(captured, radix, stages, label, errs):
     errs["blend_fwd"].append(check_kernel(kernel_by_name("blend_fwd"), fwd, label))
     errs["blend_bwd"].append(check_k2(k2, label))
     walked = blend.blend_forward(*fwd)[2]
-    pairs = blend.blend_pair_counts(*k2[:4], warp_block=WARP_BLOCK)
+    pairs = blend.blend_pair_counts(*k2[:4], warp_block=WARP_BLOCK, **band_kw(k2))
     out = {}
     ms = time_cuda_ms(lambda: blend.blend_backward(*k2), iters=10)
     plain_ms = time_cuda_ms(lambda: blend.blend_backward_plain(*k2), iters=1, warmup=1)
@@ -2856,6 +3097,8 @@ def main():
         # densify/prune, the opacity reset and capacity growth under each engine
         for path in ("densify", "partition_densify"):
             launches[path] = phase_densify(serve_model, cams, path, errs)
+        # the multi-GPU paths, at one rank
+        launches.update(phase_mesh(serve_model, ckpt, cams, errs))
         # the training CLI end to end, under each evaluation protocol
         for path in ("cli", "cli_nerfw"):
             launches[path] = phase_cli(serve_model, path, errs)

@@ -7,7 +7,9 @@ those without them; on a surfel table and on a hand-made one with a long
 tile, a mid-chunk exit and the alpha cap), K3 (the tier-2 merge, exactly;
 also on hand-made pools with padding, odd lengths, strided rows and no slot),
 K4 (the planar static blend: as K1 against its plain version, and equal to
-K1 bit for bit with bg = 0), K5 and K6 (a radix pass and its inverse: they
+K1 bit for bit with bg = 0), K1 and K2 on bands of the grid at a tile base
+(each band's outputs the whole grid's for its tiles, bit for bit, and within
+their tolerances of the plain versions at that tile base), K5 and K6 (a radix pass and its inverse: they
 only move values, so exactly, pass by pass, also at B = 2, 4, 16, 32 on
 key patterns that set K5's runs), P1 (the early-exit probe: its walked counts
 equal to K1's, its chunk counts exactly) and P2 (the run scatter, exactly,
@@ -337,6 +339,7 @@ def test_blend_kernel_matches_plain_on_card():
         assert int((kw < st.tile_counts).sum()) > 0    # some tiles exit early
         _check_planar(st, grid, n_passes, dev, (kc, kt))
         _check_backward(st, grid, n_passes, dev)
+        _check_tile_base(st, grid, n_passes, dev, (kc, kt, kw, ks))
         if n_passes == 1:
             _check_probe(st, grid, kw)
     _check_k2_edges(dev)
@@ -344,6 +347,49 @@ def test_blend_kernel_matches_plain_on_card():
     _check_radix(dev)
     _check_k3_edges(dev)
     _check_run_scatter(dev)
+
+
+def _check_tile_base(st, grid, n_passes, dev, k1_out):
+    """K1 and K2 on bands of the grid at a tile base (the sharded engines'
+    calls, 3 bands of 64 tiles): each band's outputs are the whole grid's
+    for its tiles, bit for bit (each tile's work is the same), and within
+    K1's and K2's tolerances of their plain versions at that tile base."""
+    T, D = grid.num_tiles, 3
+    T_band = -(-T // D)
+    g = torch.Generator(device=dev).manual_seed(11)
+    gcol = torch.randn(k1_out[0].shape, generator=g, device=dev) * 1e-3
+    gte = torch.randn(k1_out[1].shape, generator=g, device=dev) * 1e-3
+    ndc = (0.5 * grid.width, 0.5 * grid.height)
+    whole = tblend.blend_backward(st.table, st.tile_starts, st.tile_counts, grid, n_passes, gcol,
+                                  gte, k1_out[0], k1_out[1], ndc)
+    for t0 in range(T_band, T, T_band):          # the bands after the first
+        t1 = min(t0 + T_band, T)
+        nt = t1 - t0
+        starts = st.tile_starts[t0:t1 + 1].contiguous()
+        counts = st.tile_counts[t0:t1].contiguous()
+        before = (tblend.blend_forward.launches, tblend.blend_backward.launches)
+        band = tblend.blend_forward(st.table, starts, counts, grid, n_passes, tile_base=t0,
+                                    num_tiles=nt)
+        for got, want in zip(band, k1_out):
+            assert torch.equal(got, want[:, t0:t1] if got.dim() == 4 else want[t0:t1]), t0
+        plain = tblend.blend_forward_plain(st.table, starts, counts, grid, n_passes,
+                                           tile_base=t0, num_tiles=nt)
+        err = torch.maximum((band[0] - plain[0]).abs().amax(dim=(0, 3)),
+                            (band[1] - plain[1]).abs())
+        assert err.max().item() <= 5e-3 and (err > 1e-4).float().mean().item() <= 1e-4, t0
+        args = (st.table, starts, counts, grid, n_passes, gcol[:, t0:t1].contiguous(),
+                gte[t0:t1].contiguous(), band[0], band[1], ndc)
+        rows = tblend.blend_backward(*args, tile_base=t0, num_tiles=nt)
+        torch.cuda.synchronize()
+        assert (tblend.blend_forward.launches, tblend.blend_backward.launches) == \
+            (before[0] + 1, before[1] + 1)
+        lo, hi = int(starts[0]), int(starts[-1])
+        assert torch.equal(rows[:, lo:hi], whole[:, lo:hi]), t0
+        assert int(rows[:, :lo].abs().sum() + rows[:, hi:].abs().sum()) == 0
+        plain_rows = tblend.blend_backward_plain(*args, tile_base=t0)
+        rel = (rows - plain_rows).abs().amax(1) / torch.clamp_min(
+            plain_rows.abs().amax(1), 1e-30)
+        assert rel.max().item() <= 2e-3, f"band at {t0}: {rel}"
 
 
 def _check_planar(st, grid, n_passes, dev, k1_out):

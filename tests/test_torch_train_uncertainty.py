@@ -33,6 +33,8 @@ Checked:
   uncertainty model at its first "-scaled" fit, with the same mask.
 
 One test (see test_torch_isolation.py)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -179,6 +181,9 @@ def test_train_uncertainty_matches_jax(monkeypatch, tmp_path):
     # the JAX model's eager DINO calls (loss_mult_for_image) through its
     # jitted one, compiled once by its training steps
     jm._uncertainty._dino_features = jm._uncertainty._dino_jit
+    # and its fit's loss multiplier compiled whole (eager, its resizes and
+    # head compile operation by operation)
+    jm._uncertainty.loss_mult_for_image = jax.jit(jm._uncertainty.loss_mult_for_image)
     jflat = _jax_flat(jm.params)
     tflat = {k: v.detach().numpy() for k, v in tm._trainable().items()}
     assert sorted(jflat) == sorted(tflat) and "uncertainty/conv_w" in tflat
@@ -198,7 +203,17 @@ def test_train_uncertainty_matches_jax(monkeypatch, tmp_path):
     _carry(jm, tm)
 
     captured = {}
-    jadam, tadam = jgs.adam_update, gs.adam_update
+    # the JAX side's Adam step compiled whole, as its trainer runs it: eager
+    # dispatch compiles each of its operations on their own (the weight
+    # decay, a dict of floats the step branches on, is the one every call
+    # passes)
+    decay = {"appearance_embeddings": jm.config.appearance_embedding_regularization}
+    jadam_jit = jax.jit(functools.partial(jgs.adam_update, weight_decay=decay))
+
+    def jadam(params, grads, state, lrs, weight_decay=None):
+        assert weight_decay == decay
+        return jadam_jit(params, grads, state, lrs)
+    tadam = gs.adam_update
 
     def t_capture(params, grads, state, lrs, weight_decay=None):
         captured.update({k: g.detach().clone() for k, g in grads.items()})

@@ -144,11 +144,11 @@ class Config:
     # (surfaced via the send_drops metric); the trainer auto-grows this on
     # persistent drops (_maybe_grow_tile_budget).
     pallas_send_beta: float = 2.0
-    # Sharded sort engine: merge the D pre-sorted receive streams with a
-    # bitonic merge network + recorded-bits inverse replay (ops/bitonic.py)
-    # instead of re-sorting the RB receive table each way. Bit-identical
-    # to the sort path (index-tiebreak == stable sort); False restores
-    # the round-4 two-sort receiver for A/B.
+    # Read by nothing: kept so that the JAX package's configs load. There it
+    # picks the sharded sort engine's receive merge, a bitonic network
+    # (True) or a stable sort (False); the two give one order
+    # (tests/test_torch_mesh_sort.py holds it), and the port's engine
+    # merges with the stable sort.
     pallas_stream_merge: bool = True
     # Total duplicated (gaussian, tile) key capacity as a multiple of capacity.
     binning_capacity_multiplier: float = 8.0

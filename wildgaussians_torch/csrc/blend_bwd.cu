@@ -42,6 +42,9 @@
 // issue slots go to the shuffles and to pairs that contribute nothing, and
 // each tile's entries form one long chain of dependent latencies.
 //
+// `tile_base` places the T tiles in the whole grid, as K1's does: tile t
+// lies at grid tile tile_base + t (a shard's band); 0 for the whole grid.
+//
 // Design: one 256-thread block per 16x16 tile, one thread per pixel; each
 // warp holds an 8x4 block of the tile's pixels. Blocks take the tiles in
 // the order the caller gives, longest list first, so that the longest
@@ -130,7 +133,7 @@ template <int NP, bool PASS_ABS>
 __global__ void __launch_bounds__(kPix, 5)
 blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
                  const int* __restrict__ starts, const int* __restrict__ counts,
-                 const int* __restrict__ order, int grid_x, int num_tiles,
+                 const int* __restrict__ order, int grid_x, int num_tiles, int tile_base,
                  const float* __restrict__ gcol, const float* __restrict__ gte,
                  const float* __restrict__ gte_pass,
                  const float* __restrict__ colors, const float* __restrict__ final_t,
@@ -148,6 +151,7 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
   __shared__ unsigned long long wrote[kWarps];   // the entries each warp's part holds
 
   const int t = order[blockIdx.x];
+  const int tg = tile_base + t;   // the tile's place in the whole grid
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
@@ -158,8 +162,8 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
   const int wy = (warp / (kTile / kWarpW)) * kWarpH;
   const int lx = wx + lane % kWarpW;
   const int ly = wy + lane / kWarpW;
-  const float px = static_cast<float>((t % grid_x) * kTile + lx);
-  const float py = static_cast<float>((t / grid_x) * kTile + ly);
+  const float px = static_cast<float>((tg % grid_x) * kTile + lx);
+  const float py = static_cast<float>((tg / grid_x) * kTile + ly);
 
   // per pixel: each pass's color cotangent, out . gc (the suffix base), the
   // running prefix, and gt_eff * final_T (and each pass's)
@@ -190,8 +194,8 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
   // stages the chunk of entries [c, c + kChunk) of the tile: the entries,
   // and for each entry and warp whether the entry can reach the warp's
   // pixels (two pairs a thread, the geometry read through the cache)
-  const float tx0 = static_cast<float>((t % grid_x) * kTile);
-  const float ty0 = static_cast<float>((t / grid_x) * kTile);
+  const float tx0 = static_cast<float>((tg % grid_x) * kTile);
+  const float ty0 = static_cast<float>((tg / grid_x) * kTile);
   auto stage = [&](int c) {
     const int m = min(kChunk, count - c);
     const float* src = table + static_cast<long long>(start) + c;
@@ -336,23 +340,23 @@ blend_bwd_kernel(const float* __restrict__ table, long long row_stride,
 
 template <int NP, bool PASS_ABS>
 void launch(const float* table, long long row_stride, const int* starts, const int* counts,
-            const int* order, int num_tiles, int grid_x, const float* gcol, const float* gte,
-            const float* gte_pass, const float* colors, const float* final_t, float sx,
-            float sy, float* grads, long long grad_stride, cudaStream_t s) {
+            const int* order, int num_tiles, int grid_x, int tile_base, const float* gcol,
+            const float* gte, const float* gte_pass, const float* colors, const float* final_t,
+            float sx, float sy, float* grads, long long grad_stride, cudaStream_t s) {
   blend_bwd_kernel<NP, PASS_ABS><<<num_tiles, kPix, 0, s>>>(
-      table, row_stride, starts, counts, order, grid_x, num_tiles, gcol, gte, gte_pass, colors,
-      final_t, sx, sy, grads, grad_stride);
+      table, row_stride, starts, counts, order, grid_x, num_tiles, tile_base, gcol, gte, gte_pass,
+      colors, final_t, sx, sy, grads, grad_stride);
 }
 
 using Launch = void (*)(const float*, long long, const int*, const int*, const int*, int, int,
-                        const float*, const float*, const float*, const float*, const float*,
+                        int, const float*, const float*, const float*, const float*, const float*,
                         float, float, float*, long long, cudaStream_t);
 
 }  // namespace
 
 extern "C" int wg_blend_bwd(const float* table, long long row_stride,
                             const int* starts, const int* counts, const int* order,
-                            int num_tiles, int grid_x, int n_passes,
+                            int num_tiles, int grid_x, int tile_base, int n_passes,
                             const float* gcol, const float* gte, const float* gte_pass,
                             const float* colors, const float* final_t,
                             float sx, float sy,
@@ -363,8 +367,8 @@ extern "C" int wg_blend_bwd(const float* table, long long row_stride,
   static const Launch kLaunch[2][3] = {{launch<1, false>, launch<2, false>, launch<3, false>},
                                        {launch<1, true>, launch<2, true>, launch<3, true>}};
   kLaunch[gte_pass != nullptr][n_passes - 1](table, row_stride, starts, counts, order, num_tiles,
-                                             grid_x, gcol, gte, gte_pass, colors, final_t, sx,
-                                             sy, grads, grad_stride,
+                                             grid_x, tile_base, gcol, gte, gte_pass, colors,
+                                             final_t, sx, sy, grads, grad_stride,
                                              static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

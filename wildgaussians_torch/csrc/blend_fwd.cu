@@ -40,6 +40,9 @@
 // telemetry: `walked == count` alone cannot tell a tile that never
 // saturated from one that saturated on its last entry). `order` [T] is a
 // permutation of the tiles, the order in which blocks take them.
+// `tile_base` places the T tiles in the whole grid (the TPU kernel's scalar
+// `tb`): tile t lies at grid tile tile_base + t, so a shard blends its band
+// of tiles at their global pixel coordinates; 0 for the whole grid.
 //
 // The launch goes on the caller's stream; the kernel allocates nothing and
 // does not synchronize with the host. wg_blend_fwd returns cudaGetLastError().
@@ -54,7 +57,7 @@ template <int NP>
 __global__ void __launch_bounds__(kPix)
 blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
                  const int* __restrict__ starts, const int* __restrict__ counts,
-                 const int* __restrict__ order, int grid_x, int num_tiles,
+                 const int* __restrict__ order, int grid_x, int num_tiles, int tile_base,
                  float* __restrict__ colors, float* __restrict__ final_t,
                  int* __restrict__ walked, int* __restrict__ saturated) {
   constexpr int W = 6 + 3 * NP;
@@ -70,7 +73,7 @@ blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
   for (int i = 0; i < 3 * NP; ++i) acc[i] = 0.0f;
 
   const wg::WalkEnd end = wg::walk_tile<W>(
-      table, row_stride, starts[t], counts[t], t, grid_x, sm,
+      table, row_stride, starts[t], counts[t], tile_base + t, grid_x, sm,
       [&](const wg::Pair& q, const float* f) {
         if (q.c) {
 #pragma unroll
@@ -104,7 +107,7 @@ blend_fwd_kernel(const float* __restrict__ table, long long row_stride,
 
 extern "C" int wg_blend_fwd(const float* table, long long row_stride,
                             const int* starts, const int* counts, const int* order,
-                            int num_tiles, int grid_x, int n_passes,
+                            int num_tiles, int grid_x, int tile_base, int n_passes,
                             float* colors, float* final_t, int* walked, int* saturated,
                             void* stream) {
   if (num_tiles <= 0) return 0;
@@ -112,18 +115,18 @@ extern "C" int wg_blend_fwd(const float* table, long long row_stride,
   switch (n_passes) {
     case 1:
       blend_fwd_kernel<1><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked,
-          saturated);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, tile_base, colors, final_t,
+          walked, saturated);
       break;
     case 2:
       blend_fwd_kernel<2><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked,
-          saturated);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, tile_base, colors, final_t,
+          walked, saturated);
       break;
     case 3:
       blend_fwd_kernel<3><<<num_tiles, kPix, 0, s>>>(
-          table, row_stride, starts, counts, order, grid_x, num_tiles, colors, final_t, walked,
-          saturated);
+          table, row_stride, starts, counts, order, grid_x, num_tiles, tile_base, colors, final_t,
+          walked, saturated);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

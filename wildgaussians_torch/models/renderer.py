@@ -6,7 +6,10 @@ through the appearance MLP, and blends up to three color passes (raw /
 toned / depth) over one shared preprocess and binning. `rasterizer_backend`
 `pallas` or `auto` runs the JAX package's pallas backend with pack16 off:
 the sort engine (with the saturation cull under a map, `sat_super`), or the
-partition or gather engine (`pallas_binning: partition` or `gather`);
+partition or gather engine (`pallas_binning: partition` or `gather`),
+or under a mesh (`parallel.mesh.current_mesh()`) their sharded paths (the
+JAX renderer passes its mesh and the config's `pallas_send_beta` and
+`shard_gaussian_store` alike);
 `tiled` runs its tiled backend: `bin_gaussians` with `depth_sort_mode` and
 the plain-torch `rasterize_tiled` once per pass. Differentiable: with grad
 enabled the blend runs its backward, and the two zero hooks of training
@@ -15,16 +18,18 @@ receive the gradients of the densification statistics.
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..cameras import make_camera_params_torch
 from ..config import Config
 from ..ops.binning import bin_gaussians
-from ..ops.blend import rasterize_multi
+from ..ops.blend import engine_binning, rasterize_multi
 from ..ops.gaussians import compute_cov3d, preprocess
 from ..ops.partition_engine import engine_d_small
 from ..ops.rasterize import engine_overflow_count
 from ..ops.rasterize_tiled import make_grid, rasterize_tiled
 from ..ops.sh import eval_sh_switch
+from ..parallel.mesh import all_gather_cat, all_reduce_, current_mesh
 from ..spans import span
 from .appearance import AppearanceMLP
 
@@ -42,6 +47,9 @@ class RenderPkg(NamedTuple):
     # per-tile saturation depths [T] from K1's exit vote (the sort engine
     # only, else None); `pool_sat_depth` makes a later step's map of them
     sat_depth: Optional[torch.Tensor] = None
+    # entries the sharded sort engine's send cap dropped, over the ranks
+    # (under a mesh, else None); counted in `overflow` too
+    send_drops: Optional[torch.Tensor] = None
 
 
 def render_internal(gaussians: Dict[str, torch.Tensor],
@@ -72,8 +80,15 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
     appearance on, `return_raw=False` skips the raw pass (the toned image
     then stands in for `raw_render`, and its final_T gives `accumulation`).
     `sat_super` [sy, sx]: the saturation map the sort engine's binning culls
-    under (None: no cull)."""
+    under (None: no cull).
+
+    Under a mesh with `shard_gaussian_store`, `gaussians` and `params` hold
+    this rank's block of the store: the images, `num_rendered`, `overflow`
+    and `max_tiles` are the whole store's, the same on every rank, and
+    `radii` is the rank's block."""
     max_tiles_per_gaussian = config.max_tiles_per_gaussian
+    mesh = current_mesh()
+    sharded = mesh is not None and config.shard_gaussian_store
     with span("camera"):
         camera = make_camera_params_torch(pose, intrinsics, width, height)
         if actual_size is not None:
@@ -123,23 +138,30 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
     depth_norm = None
     if render_depth:
         with span("depth_colors"):
-            dist = torch.linalg.norm(means3d - camera.campos[None], dim=-1)
+            dist_c = torch.linalg.norm(means3d - camera.campos[None], dim=-1)
             # the depth pass is normalized by its largest valid distance, as
             # in the JAX package (compositing is linear in color; the scale
             # is re-applied to the blended image below)
-            depth_norm = torch.max(torch.where(pre.valid, dist, 0.0)) + 1e-6
-            passes.append(("depth", (dist / depth_norm)[:, None].repeat(1, 3)))
+            depth_max = torch.max(torch.where(pre.valid, dist_c, 0.0))
+            if sharded:
+                depth_max = all_reduce_(depth_max.clone(), mesh, dist.ReduceOp.MAX)
+            depth_norm = depth_max + 1e-6
+            passes.append(("depth", (dist_c / depth_norm)[:, None].repeat(1, 3)))
 
     # NDC factors of the reference's abs-gradient channel (0.5 W, 0.5 H)
     if actual_size is not None:
         ndc_scale = (0.5 * float(actual_size[0]), 0.5 * float(actual_size[1]))
     else:
         ndc_scale = (0.5 * width, 0.5 * height)
+    binning = engine_binning(config.pallas_binning, mesh)
     d_small = config.pallas_d_small
-    if config.pallas_binning in ("partition", "gather"):
+    if binning in ("partition", "gather"):
         d_small = engine_d_small(d_small)   # the engine's floor, for the overflow count too
     big_fraction = config.pallas_big_fraction
     tiled = config.rasterizer_backend not in ("auto", "pallas")
+    if tiled and sharded:
+        raise ValueError("the tiled backend blends every Gaussian on one device: it does "
+                         "not run on a sharded store")
     if tiled:
         with span("binning"):
             binning = bin_gaussians(pre, grid.grid_x, grid.grid_y, max_tiles_per_gaussian,
@@ -161,8 +183,9 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
             pre.mean2d, pre.conic, pre.opacity, [c for _tag, c in passes],
             pre.depth, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.valid, bg,
             grid=grid, max_tiles_per_gaussian=max_tiles_per_gaussian,
-            d_small=d_small, big_fraction=big_fraction, binning=config.pallas_binning,
-            absgrad_hook=absgrad_hook, ndc_scale=ndc_scale, sat_super=sat_super)
+            d_small=d_small, big_fraction=big_fraction, binning=binning,
+            absgrad_hook=absgrad_hook, ndc_scale=ndc_scale, sat_super=sat_super,
+            mesh=mesh, send_beta=config.pallas_send_beta, grads_sharded=sharded)
     results = dict(zip([tag for tag, _c in passes], outs))
 
     raw_img = results["raw"][0] if "raw" in results else None
@@ -174,16 +197,29 @@ def render_internal(gaussians: Dict[str, torch.Tensor],
     depth = (results["depth"][0][..., 0] * depth_norm
              if "depth" in results else None)
 
-    num_rendered = torch.sum(torch.clamp_max(pre.tiles_touched, max_tiles_per_gaussian))
+    tiles_touched, valid, vis_count = pre.tiles_touched, pre.valid, blend_aux.get("vis_count")
+    # the whole store's counts, as the JAX package's global arrays give: the
+    # sharded sort engine counts the visible cells of the rank's own block
+    if mesh is not None and binning == "sort" and not tiled:
+        vis_count = all_gather_cat(vis_count, mesh)
+    if sharded:
+        tiles_touched = all_gather_cat(tiles_touched, mesh)
+        valid = all_gather_cat(valid, mesh)
+    num_rendered = torch.sum(torch.clamp_max(tiles_touched, max_tiles_per_gaussian))
+    send_drops = blend_aux.get("send_drops")
     if tiled:
-        overflow = torch.sum(pre.tiles_touched > max_tiles_per_gaussian)
+        overflow = torch.sum(tiles_touched > max_tiles_per_gaussian)
     else:
-        overflow = engine_overflow_count(pre.tiles_touched, blend_aux.get("vis_count"),
+        overflow = engine_overflow_count(tiles_touched, vis_count,
                                          max_tiles_per_gaussian, d_small=d_small,
                                          big_fraction=big_fraction,
-                                         binning=config.pallas_binning, valid=pre.valid)
+                                         binning=binning, valid=valid)
+        if send_drops is not None:
+            # the sharded engine's send-cap drops are truncated contributions too
+            overflow = overflow + send_drops
     return RenderPkg(render=rendered, raw_render=raw_img,
                      accumulation=accumulation, radii=pre.radius,
                      depth=depth, num_rendered=num_rendered, overflow=overflow,
-                     max_tiles=torch.max(torch.where(pre.valid, pre.tiles_touched, 0)),
-                     blend=blend_aux, sat_depth=blend_aux.get("sat_depth"))
+                     max_tiles=torch.max(torch.where(valid, tiles_touched, 0)),
+                     blend=blend_aux, sat_depth=blend_aux.get("sat_depth"),
+                     send_drops=send_drops)

@@ -18,6 +18,18 @@ package's format (see io/convert.py), both ways.
 The entry points (`render_pkg` and so `render`, `train_iteration`,
 `optimize_embedding`) compute in full f32 whatever the process's TF32
 flags (`device.full_f32`), as the JAX package's `Precision.HIGHEST` does.
+
+Under a mesh (`parallel.mesh.use_mesh`, around `train_iteration` or
+`render`, on every rank alike) the renderer runs the sharded engines; with
+`shard_gaussian_store` each rank keeps capacity / D slots of the store
+(parameters, Adam's moments, the aux buffers), taken at its first entry
+under the mesh. The loss, SSIM and the uncertainty model see the whole
+image on every rank. A replicated tensor's gradient that sums over the
+Gaussians (the appearance MLP, the image embeddings) is summed over the
+ranks; one that comes from the loss alone (the uncertainty head) is the
+same on every rank already. Densify/prune and capacity growth keep the
+whole store's semantics: every rank gathers the store, runs them as one
+device does and keeps its block again.
 """
 import hashlib
 import logging
@@ -40,6 +52,8 @@ from ..ops.knn import mean_knn_dist2
 from ..ops.rasterize_tiled import make_grid
 from ..ops.sort_engine import pool_sat_depth, supertile_shape
 from ..ops.ssim import ssim
+from ..parallel.mesh import (all_gather_cat, all_reduce_, current_mesh, shard_block,
+                             shard_store)
 from ..spans import span
 from ..types import (Cameras, Dataset, MethodInfo, ModelInfo, OptimizeEmbeddingOutput,
                      RenderOutput, camera_model_to_int)
@@ -131,6 +145,9 @@ class WildGaussians:
         self.train_cameras: Optional[Cameras] = None
         self.cameras_extent: Optional[float] = None
         self._overflow_streak = 0
+        self._send_drop_streak = 0
+        # the mesh the store is sharded over (shard_gaussian_store), or None
+        self._store_mesh = None
         # (canvas w, h) -> [n_cams, sy, sx] saturation maps (saturation_culling)
         self._sat_caches: Dict[tuple, torch.Tensor] = {}
         self.mlp: Optional[AppearanceMLP] = None
@@ -237,8 +254,15 @@ class WildGaussians:
         return trainable_tensors(self.params, self.mlp, self.uparams)
 
     def _refresh_filter(self):
-        filt = gs.compute_3d_filter(self.params["xyz"].detach(), self.aux.alive,
-                                    self._poses_dev, self._intr_dev, self._sizes_dev)
+        """The 3D filter of every slot; on a sharded store from the whole
+        store's positions (a Gaussian no camera sees takes the largest
+        distance over all of them), this rank's block kept."""
+        xyz, alive, mesh = self.params["xyz"].detach(), self.aux.alive, self._store_mesh
+        if mesh is not None:
+            xyz, alive = all_gather_cat(xyz, mesh), all_gather_cat(alive, mesh)
+        filt = gs.compute_3d_filter(xyz, alive, self._poses_dev, self._intr_dev, self._sizes_dev)
+        if mesh is not None:
+            filt = filt[shard_block(filt.shape[0], mesh)]
         self.aux = self.aux._replace(filter_3D=filt)
 
     # ------------------------------------------------------------- train step
@@ -355,11 +379,12 @@ class WildGaussians:
         return cache[camera_id]
 
     def _use_satcull(self) -> bool:
-        """The saturation cull runs on the pallas backend's sort engine only
-        (`auto` is pallas in the port), as in the JAX package."""
+        """The saturation cull runs on the pallas backend's single-device
+        sort engine only (`auto` is pallas in the port; no mesh), as in the
+        JAX package."""
         config = self.config
         return (config.saturation_culling and config.rasterizer_backend in ("auto", "pallas")
-                and config.pallas_binning == "sort")
+                and config.pallas_binning == "sort" and current_mesh() is None)
 
     def _sat_cache_for(self, pad_w: int, pad_h: int) -> torch.Tensor:
         """The per-camera saturation maps of one canvas, +inf (no cull) until
@@ -407,6 +432,8 @@ class WildGaussians:
                  for t, g in zip([*trainable.values(), m2d_hook, abs_hook], grads)]
         g_m2d, g_abs = grads[-2:]
         param_grads = dict(zip(trainable, grads[:-2]))
+        if self._store_mesh is not None:
+            self._sum_gaussian_path_grads(param_grads)
         with torch.no_grad():
             if densify_enabled:
                 # the hook gradients are in pixels; the statistics take the
@@ -433,9 +460,83 @@ class WildGaussians:
                                                       margin=config.saturation_margin)
             metrics["num_rendered"] = pkg.num_rendered
             metrics["overflow"] = pkg.overflow
+            metrics["send_drops"] = (pkg.send_drops if pkg.send_drops is not None
+                                     else torch.zeros((), device=self.device))
             metrics["max_tiles"] = pkg.max_tiles
             metrics["num_gaussians"] = torch.sum(self.aux.alive)
+            if self._store_mesh is not None:
+                all_reduce_(metrics["num_gaussians"], self._store_mesh)
         return metrics
+
+    # ------------------------------------------------------- the sharded store
+
+    def _commit_store_to_mesh(self):
+        """Under a mesh with `shard_gaussian_store`, keep this rank's
+        capacity / D block of the store (the JAX package's
+        `_commit_store_to_mesh`); once per mesh. Every rank calls it alike.
+        A sharded store holds 1/D of the Gaussians: it raises outside its
+        mesh (where a render or step would see only this rank's block)."""
+        mesh = current_mesh()
+        if self._store_mesh is not None:
+            if mesh != self._store_mesh:
+                raise RuntimeError("the store is sharded over a mesh: render and train "
+                                   "inside use_mesh(that mesh)")
+            return
+        if mesh is None or not self.config.shard_gaussian_store:
+            return
+        capacity = self.aux.alive.shape[0]
+        self._set_store(*self._map_store(lambda x: shard_store(x, capacity, mesh)))
+        self._store_mesh = mesh
+
+    def _set_store(self, params, adam, aux):
+        self.params, self.aux = params, aux
+        if adam is not None:
+            self.adam = adam
+
+    def _map_store(self, fn):
+        """(params, adam, aux) with fn applied to every per-Gaussian tensor
+        of the store: the parameters (keeping `requires_grad`), their Adam
+        moments (adam is None without a training state) and the aux
+        buffers."""
+        keys = gs.per_gaussian_keys(self.params)
+        with torch.no_grad():
+            params = {k: fn(v.detach()).requires_grad_(v.requires_grad) if k in keys else v
+                      for k, v in self.params.items()}
+            adam = None
+            if hasattr(self, "adam"):
+                adam = gs.AdamState(*[{k: fn(v) if k in keys else v for k, v in m.items()}
+                                      for m in (self.adam.mu, self.adam.nu)],
+                                    step=self.adam.step)
+            aux = gs.AuxState(*[fn(x) if x.dim() >= 1 else x for x in self.aux])
+        return params, adam, aux
+
+    def _whole_store(self):
+        """(params, adam, aux) of the whole store: this rank's, or every
+        rank's block gathered on a sharded store (every rank calls it)."""
+        mesh = self._store_mesh
+        if mesh is None:
+            return self.params, getattr(self, "adam", None), self.aux
+        return self._map_store(lambda x: all_gather_cat(x, mesh))
+
+    def _gather_store(self):
+        """The whole store on every rank, in place of this rank's block."""
+        self._set_store(*self._whole_store())
+        self._store_mesh = None
+
+    def _sum_gaussian_path_grads(self, grads: Dict[str, torch.Tensor]):
+        """Sum over the ranks, in place, the gradients of the replicated
+        tensors that the Gaussians reach (the MLP and the image embeddings:
+        each rank's is the sum over its own Gaussians). The uncertainty
+        head's gradient comes from the loss, which every rank computes
+        from the whole image alike: it is not summed."""
+        per_gaussian = set(gs.per_gaussian_keys(self.params))
+        keys = [k for k in grads if k not in per_gaussian and not k.startswith("uncertainty/")]
+        if not keys:
+            return
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        all_reduce_(flat, self._store_mesh)
+        for k, part in zip(keys, torch.split(flat, [grads[k].numel() for k in keys])):
+            grads[k] = part.view_as(grads[k])
 
     def _densify_schedule(self, iteration: int, densify_enabled: bool):
         """The JAX package's host schedule after a step: while densifying,
@@ -449,11 +550,19 @@ class WildGaussians:
         if densify_enabled:
             if (iteration > config.densify_from_iter
                     and iteration % config.densification_interval == 0):
+                # on a sharded store: the whole store on every rank, which
+                # then runs what one device runs, with the same draws
+                sharded = self._store_mesh is not None
+                if sharded:
+                    with span("gather_store"):
+                        self._gather_store()
                 with span("densify"):
                     self.params, self.adam, self.aux, stats = gs.densify_and_prune(
                         self.params, self.adam, self.aux, config, self.cameras_extent,
                         iteration > config.opacity_reset_interval, self._generator)
                 self._maybe_grow_capacity(stats)
+                if sharded:
+                    self._commit_store_to_mesh()
                 self._refresh_filter()
                 self._sat_caches.clear()   # the scene changed: learn the maps again
             if iteration % config.opacity_reset_interval == 0:
@@ -510,6 +619,7 @@ class WildGaussians:
             raise RuntimeError("the method was not constructed with a train_dataset")
         iteration = step + 1
         self.step = step
+        self._commit_store_to_mesh()
         if iteration % 1000 == 0:   # SH warm-up
             self.aux = self.aux._replace(active_sh_degree=torch.clamp_max(
                 self.aux.active_sh_degree + 1, self.config.sh_degree))
@@ -527,16 +637,28 @@ class WildGaussians:
         vec = torch.stack([metrics[k].to(torch.float32) for k in keys]).cpu().numpy()
         out = {k: float(v) for k, v in zip(keys, vec)}
         out["num_gaussians"] = int(out["num_gaussians"])
-        self._maybe_grow_tile_budget(out["overflow"], out["max_tiles"])
+        self._maybe_grow_tile_budget(out["overflow"], out["send_drops"], out["max_tiles"])
         self.step = step + 1
         return out
 
-    def _maybe_grow_tile_budget(self, overflow: float, max_tiles: float):
+    def _maybe_grow_tile_budget(self, overflow: float, send_drops: float = 0.0,
+                                max_tiles: float = 0.0):
         """Raise the per-Gaussian tile budget (and the big-Gaussian pool)
         after 10 steps in a row with truncated contributions, as the JAX
         package does; here that only changes the config, since nothing is
         compiled per budget. Stops growing once a grow did not cut the
-        overflow by 30 % or the budget reached 128."""
+        overflow by 30 % or the budget reached 128. The sharded engine's
+        send-cap drops (counted in `overflow` too) grow `pallas_send_beta`
+        by half instead, after 10 steps in a row with drops, up to 16."""
+        self._send_drop_streak = self._send_drop_streak + 1 if send_drops > 0 else 0
+        if self._send_drop_streak >= 10 and self.config.pallas_send_beta < 16:
+            old_beta = self.config.pallas_send_beta
+            self.config.pallas_send_beta = old_beta * 1.5
+            logger.info("Persistent sharded-engine send drops (%d steps): growing send_beta "
+                        "%.2f -> %.2f", self._send_drop_streak, old_beta,
+                        self.config.pallas_send_beta)
+            self._send_drop_streak = 0
+        overflow = overflow - send_drops     # the tile overflow
         self._overflow_streak = self._overflow_streak + 1 if overflow > 0 else 0
         if self._overflow_streak < 10:
             return
@@ -584,6 +706,7 @@ class WildGaussians:
         render_depth = bool(options and "depth" in options.get("outputs", ()))
         w, h = int(camera.image_sizes[0]), int(camera.image_sizes[1])
         pw, ph = _round_up(w, 16), _round_up(h, 16)
+        self._commit_store_to_mesh()
         np_embedding = (options or {}).get("embedding", None)
         embedding = (torch.as_tensor(np.asarray(np_embedding, np.float32), device=self.device)
                      if np_embedding is not None else self.get_embedding(None))
@@ -695,6 +818,7 @@ class WildGaussians:
         mse and psnr."""
         if not self.config.appearance_enabled:
             raise NotImplementedError("Trying to optimize embedding with appearance_enabled=False")
+        self._commit_store_to_mesh()
         inputs = self._embed_opt_inputs(dataset)
         emb = (torch.as_tensor(np.asarray(embedding, np.float32), device=self.device)
                if embedding is not None else self.get_embedding(None)).clone()
@@ -712,6 +836,8 @@ class WildGaussians:
                 loss, mse = self._embed_opt_loss(gaussians, var, *inputs)
             with span("embed_backward"):
                 (g,) = torch.autograd.grad(loss, [var])
+                if self._store_mesh is not None:
+                    all_reduce_(g, self._store_mesh)     # a sum over the Gaussians
             with torch.no_grad(), span("embed_adam"):
                 mu = b1 * mu + (1 - b1) * g
                 nu = b2 * nu + (1 - b2) * g * g
@@ -734,8 +860,10 @@ class WildGaussians:
 
     def state_dict(self) -> Dict[str, np.ndarray]:
         """The training state as flat numpy arrays under the JAX package's
-        `_state_dict` keys (what `chkpnt-<step>.npz` holds)."""
-        return state_to_numpy(self.params, self.mlp, self.aux, self.adam, self.spatial_lr_scale,
+        `_state_dict` keys (what `chkpnt-<step>.npz` holds), of the whole
+        store on a sharded one (every rank calls it)."""
+        params, adam, aux = self._whole_store()
+        return state_to_numpy(params, self.mlp, aux, adam, self.spatial_lr_scale,
                               self.uparams,
                               self._uncertainty.bn_state if self._uncertainty else None)
 
@@ -748,16 +876,17 @@ class WildGaussians:
         if not hasattr(self, "adam"):
             raise RuntimeError("save needs a training state (construct with train_dataset)")
         os.makedirs(path, exist_ok=True)
+        params, _adam, aux = self._whole_store()
         with torch.no_grad():
-            gaussians = gs.get_gaussians(self.params, self.aux)
-            alive = self.aux.alive
+            gaussians = gs.get_gaussians(params, aux)
+            alive = aux.alive
 
             def live(x):
                 return x.detach()[alive].cpu().numpy()
             save_ply(os.path.join(path, "point_cloud.ply"),
-                     xyz=live(self.params["xyz"]), features_dc=live(self.params["features_dc"]),
+                     xyz=live(params["xyz"]), features_dc=live(params["features_dc"]),
                      opacities=live(gaussians["opacities"]), scales=live(gaussians["scales"]),
-                     rotations=live(self.params["rotations"]))
+                     rotations=live(params["rotations"]))
         state = self.state_dict()
         ckpt_path = os.path.join(path, f"chkpnt-{self.step}.npz")
         np.savez(ckpt_path, **state)

@@ -22,6 +22,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import gather_shards, take_shard
 from ..spans import span
 from . import _build
 from .rasterize_tiled import ALPHA_MAX, ALPHA_MIN, T_EPS, TileGrid, tiles_to_image
@@ -50,15 +51,17 @@ class _PlainBatch(NamedTuple):
     e: torch.Tensor         # [B, P, L] exp(power)
 
 
-def _plain_batches(table, tile_starts, tile_counts, grid: TileGrid):
+def _plain_batches(table, tile_starts, tile_counts, grid: TileGrid, tile_base: int = 0,
+                   num_tiles: Optional[int] = None):
     """K1's per-(pixel, entry) quantities in the JAX kernel's log-space form,
     tile batch by tile batch: each tile's entries [start, start+count) are
     padded to the longest list of the batch, and a batch stays under
-    _PLAIN_BATCH_ELEMS elements per intermediate."""
+    _PLAIN_BATCH_ELEMS elements per intermediate. The num_tiles tiles
+    (default: the grid's) lie at grid tiles tile_base, tile_base + 1, ..."""
     if grid.tile_size * grid.tile_size != P_PIX:
         raise ValueError("the blend works on 16x16 tiles")
     dev = table.device
-    T = grid.num_tiles
+    T = grid.num_tiles if num_tiles is None else num_tiles
     ts = grid.tile_size
     ii = torch.arange(P_PIX, device=dev)
     lx, ly = ii % ts, ii // ts
@@ -78,8 +81,9 @@ def _plain_batches(table, tile_starts, tile_counts, grid: TileGrid):
             em = pos[None, :] < counts[t0:t1, None]                     # [B, L]
             idx = torch.where(em, starts[t0:t1, None] + pos[None, :], 0)
             ent = table[:, idx]                                          # [W, B, L]
-            px = ((tb % grid.grid_x) * ts)[:, None] + lx[None, :]
-            py = ((tb // grid.grid_x) * ts)[:, None] + ly[None, :]
+            tg = tb + tile_base
+            px = ((tg % grid.grid_x) * ts)[:, None] + lx[None, :]
+            py = ((tg // grid.grid_x) * ts)[:, None] + ly[None, :]
             dx = ent[0][:, None, :] - px.to(torch.float32)[..., None]   # [B, P, L]
             dy = ent[1][:, None, :] - py.to(torch.float32)[..., None]
             ca, cb, cc, op = (ent[r][:, None, :] for r in (2, 3, 4, 5))
@@ -95,7 +99,9 @@ def _plain_batches(table, tile_starts, tile_counts, grid: TileGrid):
 
 
 def blend_forward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
-                        tile_counts: torch.Tensor, grid: TileGrid, n_passes: int):
+                        tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
+                        order: Optional[torch.Tensor] = None, tile_base: int = 0,
+                        num_tiles: Optional[int] = None):
     """Plain PyTorch K1, in the JAX kernel's log-space form.
 
     Per (pixel, entry): use = power <= 0 and alpha >= 1/255; l = log1p(-alpha)
@@ -103,16 +109,20 @@ def blend_forward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
     contributes alpha * T_incl / (1 - alpha) if used and T_incl >= 1e-4
     (monotone in the entry, so this is the sequential stop). Returns
     (colors [n_passes, T, 256, 3], final_t [T, 256], walked [T] int32,
-    saturated [T] int32), as the kernel does.
+    saturated [T] int32), as the kernel does. T is num_tiles (default: the
+    grid's), the tiles at grid tiles tile_base, tile_base + 1, ... (a band).
+    `order` is the kernel's tile order, which changes no result: accepted,
+    so that the plain version takes the kernel's arguments, and unused.
     """
+    del order
     dev = table.device
-    T = grid.num_tiles
+    T = grid.num_tiles if num_tiles is None else num_tiles
     colors = torch.zeros((n_passes, T, P_PIX, 3), dtype=torch.float32, device=dev)
     final_t = torch.ones((T, P_PIX), dtype=torch.float32, device=dev)
     walked = torch.zeros((T,), dtype=torch.int32, device=dev)
     saturated = torch.zeros((T,), dtype=torch.int32, device=dev)
     counts = tile_counts.long()
-    for b in _plain_batches(table, tile_starts, tile_counts, grid):
+    for b in _plain_batches(table, tile_starts, tile_counts, grid, tile_base, T):
         t0, t1 = b.t0, b.t1
         t_at = b.t_inc * (1.0 / torch.where(b.use, 1.0 - b.alpha, 1.0))
         alive = b.t_inc >= T_EPS
@@ -139,6 +149,49 @@ def _plain_walked(b: _PlainBatch, counts: torch.Tensor):
     return walked.to(torch.int32), all_stopped.to(torch.int32)
 
 
+def blend_stops_plain(table: torch.Tensor, tile_starts: torch.Tensor,
+                      tile_counts: torch.Tensor, grid: TileGrid, final_t: torch.Tensor,
+                      tile_base: int = 0, num_tiles: Optional[int] = None):
+    """Where another blend of these inputs stopped each pixel, against the
+    plain version's stop, from its final_t [T, 256] (K1's): (same [T, 256]
+    bool, flip_weight [T, 256] f32).
+
+    Per pixel, with the plain version's log-space T before each entry
+    (T_k = exp of the sum of log1p(-alpha) over the used entries before k,
+    no stop), the plain version stops at the first used entry whose T
+    after it falls under 1e-4 (or after the last entry). The other blend's
+    final T is the T before its own stop, so its stop is the used entry
+    (or the end) whose T_k lies nearest to it in log space. `same` is
+    whether the two stops are one entry; `flip_weight` is the summed
+    weight alpha T_k of the used entries between the two stops (0 where
+    they agree), the most by which the flip can move the pixel's T and,
+    times the largest color, its colors. At alpha's 0.99 cap the stopping
+    entry alone can weigh 1e-2: a product and a log-space sum that round T
+    differently then part by that much."""
+    T = grid.num_tiles if num_tiles is None else num_tiles
+    same = torch.ones((T, P_PIX), dtype=torch.bool, device=table.device)
+    weight = torch.zeros((T, P_PIX), dtype=torch.float32, device=table.device)
+    for b in _plain_batches(table, tile_starts, tile_counts, grid, tile_base, T):
+        t0, t1 = b.t0, b.t1
+        L = b.lg.shape[-1]
+        # S_k, the log T before entry k, k = 0..L (L: after the last)
+        s_excl = torch.cat([torch.zeros_like(b.lg[..., :1]), torch.cumsum(b.lg, -1)], -1)
+        stop = b.use & ~(b.t_inc >= T_EPS)
+        pos = torch.arange(L + 1, device=table.device)
+        s_plain = torch.where(stop.any(-1), torch.argmax(stop.to(torch.uint8), -1), L)
+        # the other blend's stop: a used entry or the end, nearest in log T
+        cand = torch.cat([b.use, torch.ones_like(b.use[..., :1])], -1)
+        log_t = torch.log(torch.clamp_min(final_t[t0:t1], 1e-30))[..., None]
+        dist = torch.where(cand, (s_excl - log_t).abs(), torch.inf)
+        s_other = torch.argmin(dist, -1)
+        lo, hi = torch.minimum(s_plain, s_other), torch.maximum(s_plain, s_other)
+        w = torch.where(b.use, b.alpha * torch.exp(s_excl[..., :L]), 0.0)
+        between = (pos[:L] >= lo[..., None]) & (pos[:L] < hi[..., None])
+        same[t0:t1] = s_plain == s_other
+        weight[t0:t1] = torch.where(between, w, 0.0).sum(-1)
+    return same, weight
+
+
 def blend_walked_plain(table: torch.Tensor, tile_starts: torch.Tensor,
                        tile_counts: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     """K1's `walked` [T] int32 alone, from the same batched walk as
@@ -152,7 +205,8 @@ def blend_walked_plain(table: torch.Tensor, tile_starts: torch.Tensor,
 
 def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
                       tile_counts: torch.Tensor, grid: TileGrid,
-                      warp_block: Optional[Tuple[int, int]] = None) -> Dict[str, int]:
+                      warp_block: Optional[Tuple[int, int]] = None, tile_base: int = 0,
+                      num_tiles: Optional[int] = None) -> Dict[str, int]:
     """The (pixel, entry) pairs K1's function needs on these inputs, by the
     work each needs (from the plain version's masks):
 
@@ -172,13 +226,15 @@ def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
       reach_tests        (block, entry) pairs with an evaluated pixel;
       evaluated_reached  evaluated pairs whose block the entry reaches;
       exp_reached        exp pairs whose block the entry reaches.
+
+    tile_base and num_tiles: a band of the grid, as blend_forward's.
     """
     out = dict(evaluated=0, exp=0, used=0, contributing=0)
     if warp_block is not None:
         out.update(reach_tests=0, evaluated_reached=0, exp_reached=0)
         bw, bh = warp_block
         ts = grid.tile_size
-    for b in _plain_batches(table, tile_starts, tile_counts, grid):
+    for b in _plain_batches(table, tile_starts, tile_counts, grid, tile_base, num_tiles):
         # T before the entry; T only falls, so T_before >= 1e-4 holds up to
         # and including the pixel's crossing entry
         t_before = torch.cat([torch.ones_like(b.t_inc[..., :1]), b.t_inc[..., :-1]], -1)
@@ -199,7 +255,7 @@ def blend_pair_counts(table: torch.Tensor, tile_starts: torch.Tensor,
 
 
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p]
 
@@ -232,7 +288,8 @@ def _kernel():
 
 def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
                   tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
-                  order: Optional[torch.Tensor] = None):
+                  order: Optional[torch.Tensor] = None, tile_base: int = 0,
+                  num_tiles: Optional[int] = None):
     """K1: blend every tile's depth-sorted entries for 1-3 color passes.
 
     table [6 + 3 n_passes, N] f32 (rows x, y, conic a/b/c, opacity, then
@@ -242,15 +299,18 @@ def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
     Returns (colors [n_passes, T, 256, 3], final_t [T, 256], walked [T],
     saturated [T]): the entries each tile needed and whether all of its
     pixels stopped (int32; see blend_walked_plain and
-    `sort_engine.sat_depth_from_walk`).
+    `sort_engine.sat_depth_from_walk`). T is num_tiles (default: the grid's):
+    with tile_base, the T tiles are grid tiles tile_base, tile_base + 1, ...
+    (a shard's band of the grid, blended at its global pixel coordinates).
     A CPU table runs the plain version; a CUDA table launches the kernel and
     adds one to `blend_forward.launches`.
     """
     if table.device.type == "cpu":
-        return blend_forward_plain(table, tile_starts, tile_counts, grid, n_passes)
+        return blend_forward_plain(table, tile_starts, tile_counts, grid, n_passes,
+                                   tile_base=tile_base, num_tiles=num_tiles)
     if table.device.type != "cuda":
         raise ValueError(f"blend_forward: unsupported device {table.device}")
-    T = grid.num_tiles
+    T = grid.num_tiles if num_tiles is None else num_tiles
     if not 1 <= n_passes <= 3:
         raise ValueError(f"blend_forward takes 1-3 color passes, got {n_passes}")
     if grid.tile_size != 16:
@@ -270,8 +330,8 @@ def blend_forward(table: torch.Tensor, tile_starts: torch.Tensor,
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, n_passes,
-                 colors.data_ptr(), final_t.data_ptr(), walked.data_ptr(),
+                 tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, int(tile_base),
+                 n_passes, colors.data_ptr(), final_t.data_ptr(), walked.data_ptr(),
                  saturated.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed with CUDA error {err}")
@@ -298,7 +358,9 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
                          tile_counts: torch.Tensor, grid: TileGrid, n_passes: int,
                          gcol: torch.Tensor, gte: torch.Tensor, colors: torch.Tensor,
                          final_t: torch.Tensor, ndc_scale: Tuple[float, float],
-                         gte_pass: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         gte_pass: Optional[torch.Tensor] = None,
+                         order: Optional[torch.Tensor] = None, tile_base: int = 0,
+                         num_tiles: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch K2, in the JAX kernel's log-space form (K1's plain
     quantities, `_plain_batches`).
 
@@ -313,12 +375,18 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
     for every entry no pixel reaches. With gte_pass [n_passes, T, 256] (each
     pass's own gt_eff, which sum to gte), 2 rows follow: the sums over the
     passes of sum|dmx_pix| and of sum|dmy_pix| of the dalpha of each pass
-    alone (T cg - (sfx + gte_pass final_T) / (1 - alpha)), unscaled."""
+    alone (T cg - (sfx + gte_pass final_T) / (1 - alpha)), unscaled. The
+    tiles are gcol's T (num_tiles, if given, must be it), at grid tiles
+    tile_base, tile_base + 1, ... (as blend_forward_plain's); `order` is
+    unused, as there."""
+    del order
+    if num_tiles is not None and num_tiles != gcol.shape[1]:
+        raise ValueError(f"num_tiles {num_tiles} but gcol holds {gcol.shape[1]} tiles")
     sx, sy = float(ndc_scale[0]), float(ndc_scale[1])
     out = torch.zeros((grad_rows(n_passes, gte_pass is not None), table.shape[1]),
                       dtype=torch.float32, device=table.device)
     starts = tile_starts.long()
-    for b in _plain_batches(table, tile_starts, tile_counts, grid):
+    for b in _plain_batches(table, tile_starts, tile_counts, grid, tile_base, gcol.shape[1]):
         t0, t1 = b.t0, b.t1
         rinv = 1.0 / torch.where(b.use, 1.0 - b.alpha, 1.0)
         t_at = b.t_inc * rinv
@@ -371,7 +439,7 @@ def blend_backward_plain(table: torch.Tensor, tile_starts: torch.Tensor,
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p,
                  ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong,
@@ -397,18 +465,21 @@ def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
                    gcol: torch.Tensor, gte: torch.Tensor, colors: torch.Tensor,
                    final_t: torch.Tensor, ndc_scale: Tuple[float, float],
                    gte_pass: Optional[torch.Tensor] = None,
-                   order: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   order: Optional[torch.Tensor] = None, tile_base: int = 0,
+                   num_tiles: Optional[int] = None) -> torch.Tensor:
     """K2: the per-entry gradient rows [7 + 3 n_passes, N] of the blend, and
     with gte_pass the 2 per-pass abs rows after them (see
-    blend_backward_plain for the arguments; `order` as blend_forward's). A
+    blend_backward_plain for the arguments; `order`, `tile_base` and
+    `num_tiles` as blend_forward's). A
     CPU table runs the plain version; a CUDA table launches the kernel in
     `csrc/blend_bwd.cu` and adds one to `blend_backward.launches`."""
     if table.device.type == "cpu":
         return blend_backward_plain(table, tile_starts, tile_counts, grid, n_passes,
-                                    gcol, gte, colors, final_t, ndc_scale, gte_pass)
+                                    gcol, gte, colors, final_t, ndc_scale, gte_pass,
+                                    tile_base=tile_base, num_tiles=num_tiles)
     if table.device.type != "cuda":
         raise ValueError(f"blend_backward: unsupported device {table.device}")
-    T = grid.num_tiles
+    T = grid.num_tiles if num_tiles is None else num_tiles
     if not 1 <= n_passes <= 3:
         raise ValueError(f"blend_backward takes 1-3 color passes, got {n_passes}")
     if grid.tile_size != 16:
@@ -432,8 +503,8 @@ def blend_backward(table: torch.Tensor, tile_starts: torch.Tensor,
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, n_passes,
-                 gcol.data_ptr(), gte.data_ptr(),
+                 tile_counts.data_ptr(), order.data_ptr(), T, grid.grid_x, int(tile_base),
+                 n_passes, gcol.data_ptr(), gte.data_ptr(),
                  None if gte_pass is None else gte_pass.data_ptr(),
                  colors.data_ptr(), final_t.data_ptr(),
                  float(ndc_scale[0]), float(ndc_scale[1]), grads.data_ptr(), grads.stride(0),
@@ -599,6 +670,13 @@ def check_binning(binning: str):
         raise ValueError(f"unknown pallas_binning {binning!r}: 'sort', 'partition' or 'gather'")
 
 
+def engine_binning(binning: str, mesh=None) -> str:
+    """The engine `rasterize_multi` runs for `binning`: under a mesh,
+    "gather" (which has no sharded path) runs as "sort"."""
+    check_binning(binning)
+    return "sort" if mesh is not None and binning == "gather" else binning
+
+
 def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
                     pre_depth, pre_rect_min, pre_rect_max, pre_tiles_touched,
                     pre_valid, bg, *, grid: TileGrid,
@@ -606,7 +684,8 @@ def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
                     big_fraction: float = 0.16, binning: str = "sort",
                     absgrad_hook: Optional[torch.Tensor] = None,
                     ndc_scale: Tuple[float, float] = (1.0, 1.0),
-                    sat_super: Optional[torch.Tensor] = None
+                    sat_super: Optional[torch.Tensor] = None,
+                    mesh=None, send_beta: float = 2.0, grads_sharded: bool = False
                     ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Render several color sets over one shared binned geometry.
 
@@ -637,13 +716,32 @@ def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
     (0.5 W, 0.5 H): the sort engine's fused one in ch0 (sx sum|dmx| + sy
     sum|dmy| of the summed gradient, ch1 = 0), the other engines' per-axis
     ones summed over the passes (ch0 = sum over passes of sx sum|dmx|, ch1
-    of sy sum|dmy|). Under `no_grad` nothing is kept for a backward."""
+    of sy sum|dmy|). Under `no_grad` nothing is kept for a backward.
+
+    Under a mesh (`parallel.mesh.TileMesh`, the JAX package's dispatch at
+    rasterize_pallas.py:2801-2822): "gather" has no sharded path and runs
+    as "sort" (`engine_binning`); "sort" runs the Gaussian-sharded sort
+    engine (`sharded_sort_engine.ShardedSortBlend`, `send_beta`), which
+    needs the Gaussians divisible by the ranks; "partition" the
+    tile-sharded partition path. With `grads_sharded` (the trainer's
+    `shard_gaussian_store`) the per-Gaussian inputs are this rank's block
+    of n * D Gaussians and their gradients stay this rank's; otherwise they
+    are every Gaussian, on every rank, and so are their gradients. The
+    images are whole on every rank (each rank's band gathered), and aux
+    holds `send_drops`, the entries the send cap dropped over the ranks (0
+    for "partition"), and the rank's own band of the blend's inputs."""
     check_binning(binning)
     if sat_super is not None and binning != "sort":
         raise ValueError(f"saturation culling runs on the sort engine only, not {binning!r}")
     if absgrad_hook is None:
         absgrad_hook = torch.zeros((mean2d.shape[0], 2), dtype=torch.float32,
                                    device=mean2d.device)
+    if mesh is not None:
+        return _rasterize_on_mesh(
+            mean2d, conic, opacity, colors_list, pre_depth, pre_rect_min, pre_rect_max,
+            pre_tiles_touched, pre_valid, bg, grid, max_tiles_per_gaussian, d_small,
+            big_fraction, binning, absgrad_hook, ndc_scale, sat_super, mesh, send_beta,
+            grads_sharded)
     aux: Dict[str, torch.Tensor] = {}
     args = (mean2d, conic, opacity, torch.stack(colors_list), absgrad_hook, bg,
             pre_depth, pre_rect_min, pre_rect_max,
@@ -658,14 +756,64 @@ def rasterize_multi(mean2d, conic, opacity, colors_list: List[torch.Tensor],
         from .partition_engine import PartitionBlend, engine_d_small
         fn = PartitionBlend if binning == "partition" else GatherBlend
         color, final_t = fn.apply(*args, engine_d_small(d_small), big_fraction, ndc_scale, aux)
+    return _compose(color, final_t, grid), aux
+
+
+def _compose(color, final_t, grid: TileGrid):
+    """[(color [H,W,3], final_T [H,W]) per pass] from the tiles' colors
+    [n_passes, T, 256, 3] and final_T ([T, 256] shared by the passes, or
+    one [n_passes, T, 256] per pass: the partition and gather engines)."""
     with span("compose"):
-        if final_t.dim() == 3:      # one final_T per pass (the partition and gather engines)
-            images = [(tiles_to_image(color[i], grid), tiles_to_image(final_t[i], grid))
-                      for i in range(len(colors_list))]
-        else:
-            T_img = tiles_to_image(final_t, grid)
-            images = [(tiles_to_image(color[i], grid), T_img) for i in range(len(colors_list))]
-    return images, aux
+        if final_t.dim() == 3:
+            return [(tiles_to_image(color[i], grid), tiles_to_image(final_t[i], grid))
+                    for i in range(color.shape[0])]
+        T_img = tiles_to_image(final_t, grid)
+        return [(tiles_to_image(color[i], grid), T_img) for i in range(color.shape[0])]
+
+
+def _rasterize_on_mesh(mean2d, conic, opacity, colors_list, pre_depth, pre_rect_min,
+                       pre_rect_max, pre_tiles_touched, pre_valid, bg, grid, max_tiles_per_gaussian,
+                       d_small, big_fraction, binning, absgrad_hook, ndc_scale, sat_super, mesh,
+                       send_beta, grads_sharded):
+    """rasterize_multi under a mesh (see there)."""
+    # they import this module
+    from .partition_engine import PartitionBlend, engine_d_small
+    from .sharded_sort_engine import ShardedSortBlend
+    if sat_super is not None:
+        raise ValueError("saturation culling runs on one device only (the JAX trainer's "
+                         "_use_satcull)")
+    binning = engine_binning(binning, mesh)
+    D = mesh.size
+    n = mean2d.shape[0] * (D if grads_sharded else 1)
+    if binning == "sort" and n % D:
+        raise ValueError(f"the sharded sort engine needs n ({n}) divisible by the mesh "
+                         f"({D}): pad the Gaussian capacity")
+    stack = torch.stack(colors_list)
+    per_gaussian = [mean2d, conic, opacity, stack, absgrad_hook, pre_depth, pre_rect_min,
+                    pre_rect_max, torch.clamp_max(pre_tiles_touched, max_tiles_per_gaussian),
+                    pre_valid]
+    dims = [0, 0, 0, 1, 0, 0, 0, 0, 0, 0]
+    # the sort engine bins a rank's own Gaussians, the partition engine
+    # every Gaussian
+    if binning == "sort" and not grads_sharded:
+        per_gaussian = [take_shard(x, mesh, d) for x, d in zip(per_gaussian, dims)]
+    elif binning == "partition" and grads_sharded:
+        per_gaussian = [gather_shards(x, mesh, d) for x, d in zip(per_gaussian, dims)]
+    m2d, con, op, st, hook, dep, rmin, rmax, tt, val = per_gaussian
+    aux: Dict[str, torch.Tensor] = {}
+    head = (m2d, con, op, st, hook, bg, dep, rmin, rmax, tt, val, grid, max_tiles_per_gaussian)
+    if binning == "sort":
+        color, final_t = ShardedSortBlend.apply(*head, d_small, big_fraction, ndc_scale, mesh,
+                                                float(send_beta), aux)
+    else:
+        color, final_t = PartitionBlend.apply(*head, engine_d_small(d_small), big_fraction,
+                                              ndc_scale, aux, mesh)
+        aux["send_drops"] = torch.zeros((), dtype=torch.int64, device=mean2d.device)
+    T = grid.num_tiles
+    with span("gather_bands"):
+        color = gather_shards(color, mesh, 1)[:, :T]
+        final_t = gather_shards(final_t, mesh, final_t.dim() - 2)[..., :T, :]
+    return _compose(color, final_t, grid), aux
 
 
 def rasterize_pallas(mean2d, conic, opacity, colors, absgrad_hook, pre_depth, pre_rect_min,

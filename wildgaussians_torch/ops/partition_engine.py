@@ -35,6 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import TileMesh, all_reduce_
 from ..spans import span
 from . import blend
 from .partition import PartitionMeta, bucket_ranges, num_passes, radix_partition, \
@@ -231,13 +232,23 @@ class PartitionBlend(torch.autograd.Function):
     passes of sx sum|dmx_pix| of that pass's gradient alone, ch1 = the same
     of sy sum|dmy_pix|. The sort engine keeps its fused channel instead;
     for one pass both have the same g_abs.sum(-1), which is all the
-    trainer reads."""
+    trainer reads.
+
+    Under a mesh (`mesh`, the JAX engine's tile-sharded path,
+    rasterize_pallas.py:2227-2232, :2374-2405, :2483-2530) the binning stays
+    replicated (every rank bins every Gaussian with K5), and each rank
+    blends its band of T_band = ceil(T / D) tiles with K1 at tile base
+    rank * T_band; the outputs are the band's [n_passes, T_band, 256, 3]
+    and [n_passes, T_band, 256]. Its backward runs K2 on the band, zeroes
+    the entry rows outside the band's segment, reduces them to the ranks'
+    sums (K6, rank sums, K3) and sums those over the ranks, as it does the
+    background's gradient: every rank returns the same gradients."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, colors_stack, absgrad_hook, bg, depth, rect_min,
                 rect_max, tiles_touched, valid, grid: TileGrid, max_tiles_per_gaussian: int,
                 d_small: int, big_fraction: float, ndc_scale: Tuple[float, float],
-                aux: Dict[str, torch.Tensor]):
+                aux: Dict[str, torch.Tensor], mesh: Optional[TileMesh] = None):
         del absgrad_hook   # its gradient is the fused abs channel
         n, n_passes = mean2d.shape[0], colors_stack.shape[0]
         pt = build_partition_table(grid, n, max_tiles_per_gaussian, n_passes, d_small,
@@ -245,17 +256,21 @@ class PartitionBlend(torch.autograd.Function):
                                    rect_min, rect_max, tiles_touched, valid)
         nkey = pt.sizes.nkey
         attrs = pt.table[nkey:nkey + 6 + 3 * n_passes]
+        starts, counts, tile_base, T = pt.tile_starts, pt.tile_counts, 0, grid.num_tiles
+        if mesh is not None:
+            starts, counts, tile_base, T = band_of(starts, counts, grid.num_tiles, mesh)
         with span("blend_kernel"):
             # K1 and K2 take the tiles in one order, computed once a step
-            order = blend.tile_order(pt.tile_counts, grid.num_tiles)
+            order = blend.tile_order(counts, T)
             colors, final_t, walked, _sat = blend.blend_forward(
-                attrs, pt.tile_starts, pt.tile_counts, grid, n_passes, order=order)
-        ctx.save_for_backward(pt.table, pt.tile_starts, pt.tile_counts, pt.big_list, colors,
-                              final_t, bg, order)
+                attrs, starts, counts, grid, n_passes, order=order, tile_base=tile_base,
+                num_tiles=T)
+        ctx.save_for_backward(pt.table, starts, counts, pt.big_list, colors, final_t, bg, order)
         ctx.metas = (pt.presort, pt.rank, pt.tile)
         ctx.grid, ctx.ndc_scale, ctx.n, ctx.sizes = grid, ndc_scale, n, pt.sizes
-        aux.update(table=attrs, entry_table=pt.table, tile_starts=pt.tile_starts,
-                   tile_counts=pt.tile_counts, walked=walked, big_list=pt.big_list,
+        ctx.mesh, ctx.tile_base = mesh, tile_base
+        aux.update(table=attrs, entry_table=pt.table, tile_starts=starts,
+                   tile_counts=counts, walked=walked, big_list=pt.big_list,
                    presort_meta=pt.presort, rank_meta=pt.rank, tile_meta=pt.tile)
         return colors + final_t[..., None] * bg, final_t.repeat(n_passes, 1, 1)
 
@@ -263,8 +278,8 @@ class PartitionBlend(torch.autograd.Function):
     def backward(ctx, g_color, g_final_t):
         table, starts, counts, big_list, colors, final_t, bg, order = ctx.saved_tensors
         pmeta, rmeta, tmeta = ctx.metas
-        sz, n = ctx.sizes, ctx.n
-        n_passes = colors.shape[0]
+        sz, n, mesh = ctx.sizes, ctx.n, ctx.mesh
+        n_passes, T = colors.shape[0], colors.shape[1]
         G0 = blend.grad_rows(n_passes)
         G = G0 + 1                  # with the two per-axis abs rows, less the fused row
         g_color = g_color.contiguous()
@@ -278,12 +293,21 @@ class PartitionBlend(torch.autograd.Function):
             # engine's live mask (rasterize_pallas.py:2535-2542)
             eg = blend.blend_backward(table[sz.nkey:sz.nkey + 6 + 3 * n_passes], starts, counts,
                                       ctx.grid, n_passes, g_color, gte, colors, final_t,
-                                      ctx.ndc_scale, gte_pass, order=order)
+                                      ctx.ndc_scale, gte_pass, order=order,
+                                      tile_base=ctx.tile_base, num_tiles=T)
+            if mesh is not None:
+                # only the band's own segment: the rank's other entries are
+                # another rank's (K2 leaves them 0; the mask states it)
+                lo, hi = starts[0], starts[T - 1] + counts[T - 1]
+                pos = torch.arange(eg.shape[1], device=eg.device)
+                eg.mul_(((pos >= lo) & (pos < hi)).to(eg.dtype))
             # the y abs sum replaces the fused row 6 (grad_rows' layout), so
             # that rows [0, G) go back through the partitions
             eg[6].copy_(eg[G0 + 1])
             eg = eg[:G]
         dbg = torch.einsum("itpc,tp->c", g_color, final_t)
+        if mesh is not None:
+            all_reduce_(dbg, mesh)
         with span("unpartition"):
             slotg = radix_unpartition(eg, tmeta)
             del eg
@@ -298,11 +322,30 @@ class PartitionBlend(torch.autograd.Function):
         if sz.m_cap > 0:
             with span("tier2_merge"):
                 blend.tier2_merge(sums, big_list, bigs)
+        if mesh is not None:
+            with span("all_reduce"):
+                all_reduce_(sums, mesh)
         with span("unpartition"):
             orig = radix_unpartition(sums, pmeta)[:, :n]
         sx, sy = ctx.ndc_scale
         dabs = torch.stack([orig[G0] * float(sx), orig[6] * float(sy)], dim=-1)
         dcolors = torch.stack([orig[7 + 3 * i:10 + 3 * i].T for i in range(n_passes)])
         return (orig[0:2].T, orig[2:5].T, orig[5], dcolors, dabs, dbg,
-                None, None, None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None, None, None)
+
+
+def band_of(starts: torch.Tensor, counts: torch.Tensor, num_tiles: int, mesh: TileMesh):
+    """This rank's band of a whole grid's tile segments: (starts [T_band +
+    1], counts [T_band], its tile base, T_band), the tiles padded to D
+    bands with empty segments at the table's end (rasterize_pallas.py:
+    2387-2391)."""
+    D = mesh.size
+    T_band = -(-num_tiles // D)
+    pad = T_band * D - num_tiles
+    real_end = starts[num_tiles - 1:num_tiles] + counts[num_tiles - 1:num_tiles]
+    starts_p = torch.cat([starts[:num_tiles], real_end.expand(pad + 1)])
+    counts_p = torch.cat([counts[:num_tiles], counts.new_zeros(pad)])
+    t0 = mesh.rank * T_band
+    return (starts_p[t0:t0 + T_band + 1].contiguous(), counts_p[t0:t0 + T_band].contiguous(),
+            t0, T_band)
 
