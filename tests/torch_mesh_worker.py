@@ -11,11 +11,15 @@ references in the parent process and hand the ranks their inputs as
 """
 import os
 import socket
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+# Ranks still running this many seconds after spawn started them are stopped.
+SPAWN_DEADLINE_S = 600.0
 
 
 def free_port() -> int:
@@ -39,14 +43,31 @@ def _rank_main(rank, world, port, case, tmpdir, arg):
 def spawn(case, world: int, tmpdir: str, arg=None, meanwhile=None):
     """Run case(mesh, tmpdir, arg) on `world` gloo ranks, and `meanwhile()`
     in this process while they run; returns (each rank's dict of arrays,
-    what meanwhile returned) with `meanwhile`, else the former."""
+    what meanwhile returned) with `meanwhile`, else the former. A rank that
+    fails raises at once. Ranks still running `SPAWN_DEADLINE_S` seconds
+    after the start are stopped and spawn raises TimeoutError: a rank stuck
+    in a gloo collective would otherwise hold its test until gloo's own
+    30-minute timeout."""
+    deadline = SPAWN_DEADLINE_S
+    end = time.monotonic() + deadline
     ctx = mp.spawn(_rank_main, args=(world, free_port(), case, tmpdir, arg), nprocs=world,
                    join=False)
     try:
         got = meanwhile() if meanwhile is not None else None
     finally:
-        while not ctx.join():
-            pass
+        while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
+            if time.monotonic() < end:
+                continue
+            alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+            for p in ctx.processes:
+                p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            raise TimeoutError(f"{case.__name__}: ranks {alive} of {world} still running "
+                               f"after the {deadline:g} s deadline")
     outs = []
     for r in range(world):
         with np.load(os.path.join(tmpdir, f"rank{r}.npz")) as f:
@@ -119,17 +140,19 @@ def mesh_sort_case(mesh, tmpdir, arg):
     """The sharded sort engine on 4 ranks: scene "a" at D = 4 with the store
     sharded and at D = 2 (ranks {0, 1} and {2, 3}) with it replicated, each
     with the JAX package's f16 rows; scene "b" forward at send_beta 0.01
-    and 2 at D = 4."""
+    and 2 and scene "c" forward at send_beta 0.05 and D * 1.1, at D = 4
+    with the store sharded."""
     from wildgaussians_torch.parallel.mesh import make_tile_mesh
     pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
     mesh2 = make_tile_mesh(pairs[mesh.rank // 2])
-    a = load_inputs(tmpdir)
-    b = {k[2:]: v for k, v in a.items() if k.startswith("b_")}
-    a = {k: v for k, v in a.items() if not k.startswith("b_")}
+    x = load_inputs(tmpdir)
+    b, c = ({k[2:]: v for k, v in x.items() if k.startswith(p)} for p in ("b_", "c_"))
+    a = {k: v for k, v in x.items() if k[:2] not in ("b_", "c_")}
     out = _prefixed("d4_", rasterize(mesh, a, "sort", True, 2.0, f16=True))
     out.update(_prefixed("d2_", rasterize(mesh2, a, "sort", False, 2.0, f16=True)))
-    for tag, beta in (("tight_", 0.01), ("default_", 2.0)):
-        out.update(_prefixed(tag, rasterize(mesh, b, "sort", True, beta, grad=False)))
+    for tag, scene, beta in (("tight_", b, 0.01), ("default_", b, 2.0),
+                             ("skew_tight_", c, 0.05), ("skew_", c, mesh.size * 1.1)):
+        out.update(_prefixed(tag, rasterize(mesh, scene, "sort", True, beta, grad=False)))
     return out
 
 
