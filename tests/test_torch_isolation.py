@@ -3,10 +3,11 @@
 module level (the CPU machines that import every module have no triton).
 
 Every `tests/test_torch_*.py` file holds one test: pytest-xdist's
-`--dist loadfile` sends files with more tests first, so one-test files are
-sent after the suite's own, and the suite's schedule up to its long single
-tests (`test_send_cap.py`, `test_skew.py`) stays what it was without the
-port (ROADMAP.md, Queue 3)."""
+`--dist loadfile` sends files with more tests first, so one-test port files
+are sent after the suite's multi-test files and leave their schedule as it
+was without the port. The root `conftest.py` sends the suite's two long
+one-test files (`test_skew.py`, `test_send_cap.py`) ahead of all of them
+(ROADMAP.md, Queue 3)."""
 import ast
 from pathlib import Path
 
